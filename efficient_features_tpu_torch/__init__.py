@@ -1,13 +1,14 @@
-"""PyTorch + CUDA port of efficient_features_tpu (BAD detect_and_compute).
+"""PyTorch + CUDA port of efficient_features_tpu.
 
-Multi-scale FAST + Harris detection, IC-angle orientation and BAD
-descriptors, with hand-written Hopper kernels for the detect cells, the IC
-moments and BAD (csrc/).  The JAX package `efficient_features_tpu` is the
-reference this port is tested against; this package imports neither it nor
-jax.
+Multi-scale FAST + Harris detection, IC-angle orientation, and BAD and
+HashSIFT descriptors (`detect_and_compute` and standalone `compute()`), with
+hand-written Hopper kernels for the detect cells, the IC moments, BAD, the
+HashSIFT patch warp and the HashSIFT histogram (csrc/).  The JAX package
+`efficient_features_tpu` is the reference this port is tested against; this
+package imports neither it nor jax.
 """
-from .api import EfficientFeatures, KeyPoints
+from .api import BAD, EfficientFeatures, HashSIFT, KeyPoints
 from .pipeline import DESCRIPTOR_TYPES, FeatureConfig
 
-__all__ = ["EfficientFeatures", "FeatureConfig", "KeyPoints",
-           "DESCRIPTOR_TYPES"]
+__all__ = ["BAD", "EfficientFeatures", "FeatureConfig", "HashSIFT",
+           "KeyPoints", "DESCRIPTOR_TYPES"]

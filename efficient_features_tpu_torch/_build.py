@@ -37,6 +37,8 @@ _SIGNATURES = {
     "eff_ic_moments": [_P, _I, _I, _P, _P, _I, _P, _P],
     "eff_bad_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                             _I, _P, _P],
+    "eff_warp_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "eff_hs_hist": [_P, _I, _P, ctypes.c_float, _P, _P],
 }
 
 

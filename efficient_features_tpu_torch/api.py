@@ -1,13 +1,15 @@
-"""Public API: EfficientFeatures and KeyPoints.
+"""Public API: EfficientFeatures, BAD, HashSIFT and KeyPoints.
 
 Port of `efficient_features_tpu/api.py` (cv::Feature2D-shaped surface of
-cuda_efficient_features.h:28-98): detect / detect_and_compute and their
-`_async` forms, convert, and the seven parameter getter/setter pairs.
+cuda_efficient_features.h:28-98, cuda_efficient_descriptors.h:27-121):
+detect / compute / detect_and_compute and their `_async` forms, convert,
+and the seven parameter getter/setter pairs.
 
-The device is explicit: `EfficientFeatures(..., device="cuda")` runs every
-op on the GPU and raises if CUDA is absent; `device="cpu"` runs the plain
-versions of the kernels.  The `_async` methods enqueue on the current CUDA
-stream and return device tensors; `KeyPoints.block()` waits for that stream.
+The device is explicit: `EfficientFeatures(..., device="cuda")` (and `BAD`,
+`HashSIFT`) runs every op on the GPU and raises if CUDA is absent;
+`device="cpu"` runs the plain versions of the kernels.  The `_async` methods
+enqueue on the current CUDA stream and return device tensors;
+`KeyPoints.block()` waits for that stream.
 The tie-fallback decision reads one flag per pyramid level, so an `_async`
 call still syncs the host once per level.
 """
@@ -97,6 +99,33 @@ class KeyPoints:
             "(static slot count).")
 
 
+def _as_u8_image(image, device: torch.device) -> torch.Tensor:
+    """A 2-D uint8 array or tensor as a contiguous tensor on `device`."""
+    if isinstance(image, torch.Tensor):
+        img = image
+    else:
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            raise ValueError("image must be a 2-D uint8 (grayscale) array")
+        img = torch.from_numpy(np.ascontiguousarray(img))
+    if img.dtype != torch.uint8 or img.dim() != 2:
+        raise ValueError("image must be a 2-D uint8 (grayscale) array")
+    return img.to(device).contiguous()
+
+
+def _keypoints_to_xysa(keypoints) -> np.ndarray:
+    """Accept KeyPoints, (N,4) array, or a list of cv2.KeyPoint-likes."""
+    if isinstance(keypoints, KeyPoints):
+        return keypoints.xysa()
+    if isinstance(keypoints, (list, tuple)):
+        return np.array([[k.pt[0], k.pt[1], k.size, k.angle]
+                         for k in keypoints], np.float32).reshape(-1, 4)
+    a = np.asarray(keypoints, np.float32)
+    if a.ndim != 2 or a.shape[1] != 4:
+        raise ValueError("keypoints must be (N, 4) [x, y, size, angle]")
+    return a
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -109,8 +138,119 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+class _DescriptorBase:
+    """Shared compute path for BAD / HashSIFT (EfficientDescriptorsAsync,
+    cuda_efficient_descriptors.h:27-57)."""
+
+    _kind: str
+    _scale: float
+    _nbits: int
+    _device: torch.device
+
+    def compute(self, image, keypoints) -> np.ndarray:
+        """Host (N, bytes) uint8 descriptors; `KeyPoints` rows are compacted
+        to the valid keypoints."""
+        out = self.compute_async(image, keypoints).cpu().numpy()
+        if isinstance(keypoints, KeyPoints):
+            return out[keypoints._slots["valid"].cpu().numpy()]
+        return out
+
+    def compute_async(self, image, keypoints) -> torch.Tensor:
+        """Descriptors for `keypoints` on `image` (the raw image, no blur),
+        as a device tensor.
+
+        `KeyPoints` input stays on the device, and the rows align with its
+        slots (invalid slots give zero rows; compact with the valid mask, as
+        compute() does).  An (N, 4) [x, y, size, angle] tensor stays on the
+        device too.  Host (N, 4) arrays and lists of cv2.KeyPoint-likes give
+        rows in the caller's order.  One kernel call covers every keypoint
+        size."""
+        img = _as_u8_image(image, self._device)
+        if isinstance(keypoints, KeyPoints):
+            s = keypoints._slots
+            xysa = torch.stack([s["x"], s["y"], s["size"], s["angle"]],
+                               dim=1).to(self._device, torch.float32)
+            valid = s["valid"].to(self._device)
+            return P.compute(img, xysa, valid, self._nbits, self._kind,
+                             self._scale)
+        if isinstance(keypoints, torch.Tensor):
+            if keypoints.dim() != 2 or keypoints.shape[1] != 4:
+                raise ValueError(
+                    "device keypoints must be (N, 4) [x, y, size, angle]")
+            xysa = keypoints.to(self._device, torch.float32)
+        else:
+            xysa = torch.from_numpy(_keypoints_to_xysa(keypoints)).to(
+                self._device)
+        n = xysa.shape[0]
+        if n == 0:
+            return torch.zeros((0, self.descriptor_size()), dtype=torch.uint8,
+                               device=self._device)
+        valid = torch.ones(n, dtype=torch.bool, device=self._device)
+        return P.compute(img, xysa, valid, self._nbits, self._kind,
+                         self._scale)
+
+    def descriptor_size(self) -> int:
+        return self._nbits // 8
+
+    def descriptor_type(self):
+        return np.uint8
+
+    def default_norm(self) -> str:
+        return "hamming"
+
+
+class BAD(_DescriptorBase):
+    """Box Average Difference descriptor (cuda_efficient_descriptors.h:67-90).
+
+    scale_factor: sampling-window scale (1.0 for ORB-like keypoints)."""
+
+    SIZE_512_BITS = 512
+    SIZE_256_BITS = 256
+    _kind = "bad"
+
+    def __init__(self, scale_factor: float = 1.0, nbits: int = 256,
+                 device="cuda"):
+        if nbits not in (256, 512):
+            raise ValueError("BAD supports 256 or 512 bits")
+        self._scale = float(scale_factor)
+        self._nbits = nbits
+        self._device = _resolve_device(device)
+
+    @staticmethod
+    def create(scale_factor: float = 1.0, nbits: int = 256,
+               device="cuda") -> "BAD":
+        return BAD(scale_factor, nbits, device)
+
+
+class HashSIFT(_DescriptorBase):
+    """HashSIFT descriptor (cuda_efficient_descriptors.h:101-121).
+
+    cropping_scale: patch diameter = cropping_scale * kp.size.
+    sigma: accepted for API parity and has no effect, as in the JAX package
+    and the GPU reference (whose Gaussian pre-blur call is commented out,
+    cuda_hash_sift.cu:392)."""
+
+    SIZE_512_BITS = 512
+    SIZE_256_BITS = 256
+    _kind = "hash_sift"
+
+    def __init__(self, cropping_scale: float = 1.0, nbits: int = 256,
+                 sigma: float = 0.0, device="cuda"):
+        if nbits not in (256, 512):
+            raise ValueError("HashSIFT supports 256 or 512 bits")
+        self._scale = float(cropping_scale)
+        self._nbits = nbits
+        self._sigma = float(sigma)
+        self._device = _resolve_device(device)
+
+    @staticmethod
+    def create(cropping_scale: float = 1.0, nbits: int = 256,
+               sigma: float = 0.0, device="cuda") -> "HashSIFT":
+        return HashSIFT(cropping_scale, nbits, sigma, device)
+
+
 class EfficientFeatures:
-    """Multi-scale FAST+Harris detector with BAD descriptors
+    """Multi-scale FAST+Harris detector with BAD/HashSIFT descriptors
     (cuda_efficient_features.h:28-98)."""
 
     def __init__(self, nfeatures: int = 5000, scale_factor: float = 1.2,
@@ -134,17 +274,9 @@ class EfficientFeatures:
             raise _not_ported("mask=", "masked detect")
         if mesh is not None:
             raise _not_ported("mesh=", "parallel/sharding.py")
-        if isinstance(image, torch.Tensor):
-            img = image
-        else:
-            img = np.asarray(image)
-            if img.dtype != np.uint8:
-                raise ValueError("image must be a 2-D uint8 (grayscale) array")
-            img = torch.from_numpy(np.ascontiguousarray(img))
-        if img.dtype != torch.uint8 or img.dim() != 2:
-            raise ValueError("image must be a 2-D uint8 (grayscale) array")
+        img = _as_u8_image(image, self._device)
         P.validate_image_shape(self._cfg, *img.shape)
-        return img.to(self._device).contiguous()
+        return img
 
     # -- detection ---------------------------------------------------------
 
@@ -155,11 +287,16 @@ class EfficientFeatures:
         img = self._image(image, mask, mesh)
         return KeyPoints(P.detect(img, self._cfg))
 
-    def compute(self, image, keypoints):
-        raise _not_ported("standalone compute()", "standalone compute")
+    def compute(self, image, keypoints) -> np.ndarray:
+        return self._describer().compute(image, keypoints)
 
-    def compute_async(self, image, keypoints):
-        raise _not_ported("standalone compute()", "standalone compute")
+    def compute_async(self, image, keypoints) -> torch.Tensor:
+        return self._describer().compute_async(image, keypoints)
+
+    def _describer(self) -> _DescriptorBase:
+        kind, bits = self._cfg.descriptor_type.rsplit("_", 1)
+        cls = BAD if kind == "bad" else HashSIFT
+        return cls(1.0, int(bits), device=self._device)
 
     def detect_and_compute(self, image, mask=None, mesh=None):
         """(KeyPoints, (count, bytes) uint8 numpy descriptors of the valid

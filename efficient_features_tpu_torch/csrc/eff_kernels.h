@@ -45,6 +45,20 @@ int eff_bad_descriptors(const int32_t* integral, int img_h, int img_w,
                         const float* thresholds, int nbits, uint8_t* out,
                         void* stream);
 
+// K4: HashSIFT patch warp, any keypoint size.  img: (h, w) uint8;
+// kx, ky, cos_s, sin_s: (n,) float32; valid: (n,) uint8.  out: (n, 1024)
+// uint8 32x32 patches, row-major; invalid slots get zero rows.
+int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
+                     const float* ky, const float* cos_s, const float* sin_s,
+                     const uint8_t* valid, int n, uint8_t* out, void* stream);
+
+// K5: HashSIFT histogram.  patches: (n, 1024) uint8; wcore: (900, 16)
+// float32 core spatial weights (ops/hash_sift.spatial_weight_core);
+// ori_scale: orientation bins per radian as float32.  out: (n, 128) uint8,
+// orientation-major e[o*16 + rc].
+int eff_hs_hist(const uint8_t* patches, int n, const float* wcore,
+                float ori_scale, uint8_t* out, void* stream);
+
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);
 

@@ -1,8 +1,10 @@
-"""Learned BAD descriptor constants (Suarez et al., RA-L 2021).
+"""Learned descriptor constants (Suarez et al., RA-L 2021).
 
-The box pairs and thresholds are the JAX package's `.npz` assets, read by file
-path so that the port imports neither jax nor `efficient_features_tpu`.
-`bad_params_from_numpy` carries those numpy arrays over to device tensors.
+The BAD box pairs and thresholds and the HashSIFT projection matrices are the
+JAX package's `.npz` assets, read by file path so that the port imports
+neither jax nor `efficient_features_tpu`.  `bad_params_from_numpy` and
+`hash_sift_params_from_numpy` carry those numpy arrays over to device
+tensors.
 """
 from __future__ import annotations
 
@@ -59,3 +61,47 @@ def bad_params_from_numpy(box_pairs: np.ndarray, thresholds: np.ndarray,
 def bad_params(nbits: int, device: str) -> BadParams:
     """The shipped BAD tables for `nbits` on `device` (cached; read-only)."""
     return bad_params_from_numpy(*load_bad_params(nbits), device)
+
+
+class HashSiftParams(NamedTuple):
+    """HashSIFT projection on one device, for descriptor rows in the
+    orientation-major layout e[o*16 + rc] (ops/hash_sift.py).
+
+    b0: (nbits,) float32 bias column.  bp: (nbits, 128) float32 columns
+    1.. of the matrix, permuted so that proj = e @ bp.T + b0.
+    """
+    b0: torch.Tensor
+    bp: torch.Tensor
+
+
+# HashSIFT rows in the orientation-major layout: entry l = o*16 + rc holds
+# entry (l % 16)*8 + l // 16 = rc*8 + o of the reference's (rc, o) layout
+# (the JAX package's hash_sift.hs_fused_projection)
+HS_ORIENT_MAJOR = np.array([(l % 16) * 8 + l // 16 for l in range(128)])
+
+
+@functools.lru_cache(maxsize=None)
+def load_hash_sift_matrix(nbits: int) -> np.ndarray:
+    """Returns the (nbits, 129) float32 projection matrix (col 0 = bias)."""
+    if nbits not in (256, 512):
+        raise ValueError(f"HashSIFT supports 256 or 512 bits, got {nbits}")
+    data = np.load(_ASSETS / f"hash_sift_p{nbits}.npz")
+    return data["b_matrix"].astype(np.float32)
+
+
+def hash_sift_params_from_numpy(B: np.ndarray, device) -> HashSiftParams:
+    """(nbits, 129) projection matrix -> HashSiftParams on `device`."""
+    B = np.asarray(B, np.float32)
+    if B.ndim != 2 or B.shape[1] != 129:
+        raise ValueError(f"B must be (nbits, 129), got {B.shape}")
+    b0 = np.ascontiguousarray(B[:, 0])
+    bp = np.ascontiguousarray(B[:, 1 + HS_ORIENT_MAJOR])
+    return HashSiftParams(torch.from_numpy(b0).to(device),
+                          torch.from_numpy(bp).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def hash_sift_params(nbits: int, device: str) -> HashSiftParams:
+    """The shipped HashSIFT projection for `nbits` on `device` (cached;
+    read-only)."""
+    return hash_sift_params_from_numpy(load_hash_sift_matrix(nbits), device)

@@ -8,6 +8,8 @@ order as the JAX version; nothing here may be fused into an FMA.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -41,12 +43,18 @@ def affine_rows(x, y, size, angle, scale_factor, pw=PATCH_W, ph=PATCH_H):
     return m00, m01, m02, m10, m11, m12, s
 
 
+@functools.lru_cache(maxsize=None)
+def _msb_weights(device: torch.device) -> torch.Tensor:
+    # cached: a fresh host-to-GPU copy per call would cost a host sync
+    return torch.tensor([1 << (7 - i) for i in range(8)], dtype=torch.int32,
+                        device=device)
+
+
 def pack_bits_msb(bits: torch.Tensor) -> torch.Tensor:
-    """(N, nbits) {0,1} int32 -> (N, nbits//8) uint8, MSB-first."""
+    """(N, nbits) {0,1} int32 or bool -> (N, nbits//8) uint8, MSB-first."""
     n, nbits = bits.shape
     b = bits.reshape(n, nbits // 8, 8).to(torch.int32)
-    weights = torch.tensor([1 << (7 - i) for i in range(8)],
-                           dtype=torch.int32, device=bits.device)
+    weights = _msb_weights(bits.device)
     return (b * weights).sum(dim=2, dtype=torch.int32).to(torch.uint8)
 
 

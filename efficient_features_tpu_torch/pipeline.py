@@ -1,6 +1,6 @@
-"""End-to-end detect / detect-and-compute pipelines in PyTorch.
+"""End-to-end detect / detect-and-compute / compute pipelines in PyTorch.
 
-Port of `efficient_features_tpu/pipeline.py` for the BAD descriptor path.
+Port of `efficient_features_tpu/pipeline.py` for BAD and HashSIFT.
 Keypoint slots: each pyramid level owns a fixed `quota` range of the output
 arrays (ORB geometric split); invalid slots are masked; slot order within a
 level is (response desc, index asc).  Everything runs eagerly on the input's
@@ -14,7 +14,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .models.params import hash_sift_params
 from .utils import semantics as S
+from .ops import bad as ops_bad
+from .ops import hash_sift as ops_hs
 from .ops import image as ops_image
 from .ops import detect as ops_detect
 from .ops import orientation as ops_orient
@@ -86,17 +89,17 @@ def validate_image_shape(cfg: FeatureConfig, h: int, w: int):
             "reduce nlevels or scale_factor")
 
 
-def require_ported(cfg: FeatureConfig, device: torch.device,
-                   with_descriptors: bool):
+def require_ported(cfg: FeatureConfig, device: torch.device):
     """Raise NotImplementedError for the paths the port does not have yet."""
-    if with_descriptors and not cfg.descriptor_type.startswith("bad_"):
-        raise NotImplementedError(
-            f"descriptor_type={cfg.descriptor_type!r} is not ported yet "
-            "(ROADMAP.md queue A, 'HashSIFT'); use bad_256 or bad_512")
     if device.type != "cpu" and cfg.nonmax_radius < 10:
         raise NotImplementedError(
             "nonmax_radius < 10 on a GPU needs the fast_harris_nms kernel, "
             "not ported yet (ROADMAP.md queue B, 'fast_harris_nms')")
+    if device.type != "cpu" and cfg.nonmax_radius > DK.MAX_RADIUS:
+        raise NotImplementedError(
+            f"nonmax_radius > {DK.MAX_RADIUS} on a GPU exceeds the cells "
+            "kernel's shared-memory plan, not ported yet (ROADMAP.md queue "
+            "A, 'nonmax_radius > 48')")
 
 
 def _dense_selection(img, quota, cfg: FeatureConfig):
@@ -191,21 +194,47 @@ def detect_core(image: torch.Tensor, cfg: FeatureConfig):
     return slots, levels, per_level
 
 
+def _hs_from_fused(desc_u8, valid, nbits: int) -> torch.Tensor:
+    """Projection tail of HashSIFT for (N, 128) u8 rows in the
+    orientation-major layout: permuted-column product plus bias in full
+    f32, then sign, valid mask and MSB-first packing.  Equals the
+    reference's (N, 129) product up to f32 summation order."""
+    prm = hash_sift_params(nbits, str(desc_u8.device))
+    with ops_hs.full_f32_matmul():
+        proj = desc_u8.to(torch.float32) @ prm.bp.T + prm.b0
+    return ops_bad.pack_bits_msb((proj > 0) & valid[:, None])
+
+
+def _compute_descriptors(image, x, y, size, ang, valid, kind: str,
+                         nbits: int, scale: float) -> torch.Tensor:
+    """Descriptor dispatch: BAD through K3; HashSIFT through the warp (K4),
+    the histogram (K5) and the projection.  Every keypoint size takes the
+    same kernels."""
+    if kind == "bad":
+        return WK.bad_descriptors_windows(image, x, y, size, ang, valid,
+                                          nbits, scale)
+    if kind != "hash_sift":
+        raise ValueError(f"kind must be 'bad' or 'hash_sift', got {kind!r}")
+    patches = WK.warp_patches_windows(image, x, y, size, ang, valid, scale)
+    return _hs_from_fused(WK.hs_hist_from_patches(patches), valid, nbits)
+
+
 def _compute_level_descriptors(blurred, ys, xs, ang, valid,
                                cfg: FeatureConfig):
-    """BAD descriptors for one level's slots on the blurred level image, with
+    """Descriptors for one level's slots on the blurred level image, with
     keypoints (x, y, size=31, angle) in level coordinates."""
     x = xs.to(torch.float32)
     y = ys.to(torch.float32)
     size = torch.full(x.shape, float(S.PATCH_SIZE), dtype=torch.float32,
                       device=x.device)
-    return WK.bad_descriptors_windows(blurred, x, y, size, ang, valid,
-                                      cfg.descriptor_bits, 1.0)
+    kind, bits = cfg.descriptor_type.rsplit("_", 1)
+    return _compute_descriptors(blurred, x, y, size, ang, valid, kind,
+                                int(bits), 1.0)
 
 
 def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
                             with_descriptors: bool = True):
-    require_ported(cfg, image.device, with_descriptors)
+    require_ported(cfg, image.device)
     slots, levels, per_level = detect_core(image, cfg)
     if not with_descriptors:
         return slots, None
@@ -232,3 +261,15 @@ def detect_and_compute(image: torch.Tensor, cfg: FeatureConfig):
     slots.pop("x_level")
     slots.pop("y_level")
     return slots, descs
+
+
+def compute(image: torch.Tensor, xysa: torch.Tensor, valid: torch.Tensor,
+            nbits: int, kind: str, scale: float) -> torch.Tensor:
+    """(N, nbits//8) uint8 descriptors of user keypoints, (N, 4) float32
+    rows [x, y, size, angle], on the raw image (no blur), as the
+    reference's standalone BAD / HashSIFT compute.  Counterpart of
+    `compute_jit` and `compute_bucketed_jit`: one call covers every
+    keypoint size.  Invalid slots give zero rows."""
+    x, y, size, ang = xysa.to(torch.float32).unbind(1)
+    return _compute_descriptors(image, x, y, size, ang, valid, kind, nbits,
+                                scale)

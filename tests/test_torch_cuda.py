@@ -6,8 +6,12 @@ jax it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances as in `tests/test_torch_kernels.py`: K1 and K2 bit-exact, K3 at
-most int(2e-5 * bytes) + 1 differing descriptor bytes.
+Tolerances as in `tests/test_torch_kernels.py` and
+`tests/test_torch_hash_sift.py`: K1 and K2 bit-exact, K3 at most
+int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 rows
+|diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
+descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 must give
+the same bytes on every run.
 """
 import numpy as np
 import pytest
@@ -124,3 +128,55 @@ def test_tie_fallback_on_the_card_matches_the_cpu(dev):
             assert torch.equal(slots[0][k].cpu(), slots[1][k]), k
     assert float((slots[0]["angle"].cpu() - slots[1]["angle"]).abs().max()) \
         < 1e-3
+
+
+def _close_u8(got, want, share):
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d != 0).float().mean()) < share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [31.0, 64.0, 111.0, 300.0])
+def test_warp_and_hist_kernels_match_plain(dev, size):
+    img = torch.from_numpy(make_test_image(200, 280, seed=33)).to(dev)
+    x, y, _, angle, valid = bad_keypoints(200, 280, 300, seed=int(size))
+    kp = [torch.from_numpy(a).to(dev)
+          for a in (x, y, np.full(300, size, np.float32), angle, valid)]
+    before = (WK.warp_patches_windows.launches,
+              WK.hs_hist_from_patches.launches)
+    patches = WK.warp_patches_windows(img, *kp, 1.0)
+    _close_u8(patches, WK.warp_patches_windows_ref(img, *kp, 1.0), 1e-3)
+    patches[7] = 0                                    # an all-zero patch
+    rows = WK.hs_hist_from_patches(patches)
+    assert (WK.warp_patches_windows.launches,
+            WK.hs_hist_from_patches.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _close_u8(rows, WK.hs_hist_from_patches_ref(patches), 2e-3)
+    assert int(rows[7].sum()) == 0
+    assert torch.equal(rows, WK.hs_hist_from_patches(patches))   # determinism
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descriptor_type", ["hash_sift_256",
+                                             "hash_sift_512"])
+def test_hash_sift_slice_on_the_card_matches_the_cpu(dev, descriptor_type):
+    from efficient_features_tpu_torch import HashSIFT
+    scene = make_test_image(200, 280, seed=7)
+    gpu = EfficientFeatures(nfeatures=500, descriptor_type=descriptor_type,
+                            device="cuda")
+    cpu = EfficientFeatures(nfeatures=500, descriptor_type=descriptor_type,
+                            device="cpu")
+    (gk, gd), (ck, cd) = (gpu.detect_and_compute_async(scene),
+                          cpu.detect_and_compute_async(scene))
+    for k in ("x", "y", "octave", "size", "response", "valid", "count"):
+        assert torch.equal(gk._slots[k].cpu(), ck._slots[k]), k
+    budget = int(1e-4 * cd.numel()) + 1
+    assert int((gd.cpu() != cd).sum()) <= budget
+    nbits = int(descriptor_type.rsplit("_", 1)[1])
+    kp = np.stack([np.linspace(0, 279, 64), np.linspace(0, 199, 64),
+                   np.linspace(31, 300, 64), np.linspace(-1, 359, 64)],
+                  axis=1).astype(np.float32)
+    got = HashSIFT(1.0, nbits, device="cuda").compute(scene, kp)
+    want = HashSIFT(1.0, nbits, device="cpu").compute(scene, kp)
+    assert int((got != want).sum()) <= int(1e-4 * want.size) + 1
