@@ -5,27 +5,46 @@
 Builds the port's CUDA kernels from `efficient_features_tpu_torch/csrc` and
 checks each against its plain PyTorch version on the card: K1 cells, K2 IC
 moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
-31*1.2^k and 300 px) and K5 HashSIFT histogram (deterministic, zero patch ->
-zero row).  Then it drives the port's two main paths at 2160x3840 with 40000
-features, each with every launch count set to 0 just before and read just
-after:
+31*1.2^k and 300 px), K5 HashSIFT histogram (deterministic, zero patch ->
+zero row) and K6 best-2 Hamming search (bit-identical at 40000 x 40000, 256
+and 512 bits, unmasked and about 20% masked on each side, on a tie-heavy
+pool with a duplicate across train tiles and n2 not a multiple of the tile,
+rows with no valid pair; and `match`, `knn2_ratio_match`,
+`knn2_ratio_match_masked` against their plain routes).  Then it drives the
+port's four main paths at 2160x3840 with 40000 features, each with every
+launch count set to 0 just before and read just after:
   - `EfficientFeatures.detect_and_compute` with BAD-256, BAD-512,
     HashSIFT-256 and HashSIFT-512, checked against the plain path on the
     card and against the port on the CPU;
   - standalone `compute()` (`BAD`, `HashSIFT`, 256 and 512 bits) on the
     slice's detected keypoints and on 40000 host keypoints of mixed size,
-    checked against the plain path on the card.
+    checked against the plain path on the card;
+  - the image-sequence step (`samples.sample_image_sequence.
+    streaming_step_fn`, HashSIFT-256, RANSAC 256 iterations) over 3 frames
+    of a rigid warp, checked for matches, inlier share and the homography's
+    error at the image corners against the warp's own;
+  - the two-image path of `samples.sample_feature_matching` on frames 0
+    and 1: `detect_and_compute` twice, cross-checked `match`,
+    `find_homography_ransac` (512 iterations), with the same checks.
+At the samples' own size (720x1280, 3000 features) the sequence path on the
+card is held against the port on the CPU: slots bit-identical, descriptors
+within budget, matcher outputs identical on the same descriptors, RANSAC's
+homography within SAMPLE_H_TOL on the same minimal sets.
 It checks that the HashSIFT projection ignores a caller's TF32 setting, and
-times the slices, compute and each kernel (a replay of one call's launches)
-beside their plain versions with CUDA events.  Exits non-zero without a
-result when CUDA is absent or any check fails.  The second-to-last stdout
-line is a JSON object with one entry per kernel; the last is the device
-summary.
+times the slices, compute, the sequence step, RANSAC and each kernel (a
+replay of one main-path call's launches) beside their plain versions with
+CUDA events; host syncs per call come from `torch.cuda.set_sync_debug_mode`.
+Exits non-zero without a result when CUDA is absent or any check fails.
+The second-to-last stdout line is a JSON object with one entry per kernel
+(time, bound, plain and library times); the last is the device summary.
 
-Scenes: `tests/util.make_test_image` at full size holds a few hundred
+Scenes: `make_test_image` (the tests' scene) at full size holds a few hundred
 corner-rich shapes, which at 2160x3840 yield only ~1.4k keypoints for 40000
-slots; the slice therefore runs on the same generator's 270x480 scene tiled
-8x8 (~23k keypoints), and the full-size scene is a K1 check.
+slots; the slices therefore run on the same generator's 270x480 scene tiled
+8x8 (~23k keypoints), and the full-size scene is a K1 check.  A tiled scene
+repeats every descriptor 64 times, so a ratio test would drop nearly every
+match; the matching paths run on 64 different 270x480 tiles instead
+(seeds 2160..2223).
 """
 from __future__ import annotations
 
@@ -48,6 +67,31 @@ BUDGETS = {"bad": 2e-5, "hash_sift": 1e-4}   # share of bytes that may differ
 WARP_SHARE = 1e-3      # K4: |diff| <= 1 on fewer than this share of pixels
 HIST_SHARE = 2e-3      # K5: |diff| <= 1 on fewer than this share of entries
 ANGLE_TOL = 1e-3       # degrees, CPU vs GPU atan2
+SEQ_FRAMES = 3
+RANSAC_THRESH = 3.0
+# The homography's error at the four image corners against the warp's own.
+# warp_image rounds every source coordinate to the nearest pixel (up to
+# 0.71 px per point) and a keypoint on pyramid level s sits on a 1.2^s px
+# grid; the refit over thousands of inliers averages both (0.20-0.24 px on
+# the H100), so an error above 1 px at a corner means a wrong homography.
+CORNER_TOL = 1.0       # px
+# Floors set from the first H100 run (14682-17265 matches between
+# consecutive 4K frames, inlier shares 0.958-0.972), with room for noise.
+INLIER_FLOOR = 0.9     # RANSAC inliers / matches
+MATCH_FLOOR = 10000    # matches between consecutive 4K frames
+SAMPLE_HW = (720, 1280)
+SAMPLE_NFEATURES = 3000
+# RANSAC on the card vs the CPU, the same minimal sets, at the corners.
+# f32 errors of points at the threshold can fall on either side on the two
+# backends; that can move the winner among hypotheses of equal score and so
+# the refit's inlier set (0.25 px measured at 720p on the H100).  Each H is
+# also held to the warp itself within CORNER_TOL.
+SAMPLE_H_TOL = 1.0     # px
+# Peak rates of one H100 SXM from its datasheet: HBM bytes/s,
+# int8 tensor-core ops/s, float32 ops/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_INT8_TC = 1979e12
+PEAK_F32 = 67e12
 REPO = Path(__file__).resolve().parent
 
 
@@ -129,13 +173,98 @@ def patched(module_attrs):
             setattr(m, n, v)
 
 
+def host_syncs(fn) -> int:
+    """Host syncs that one call of fn makes (torch's sync debug mode)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            return sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _work(name: str, args) -> tuple[float, float, float]:
+    """(bytes, CUDA-core ops, int8 tensor-core ops) of one wrapper call:
+    each input read once and each output written once, and the work the
+    function needs on these inputs.  Op counts are per-element estimates of
+    the algorithm's own arithmetic, each op counted once:
+      K1  FAST-9 at every pixel: 16 differences, 32 threshold compares;
+      K2  a multiply-add per moment per disc pixel: 4 x 705 per keypoint;
+      K3  the integral image (2 adds per pixel) and per bit two box sums
+          (3 adds each) and the weighted compare (3);
+      K4  per sample the affine (4) and the bilinear lerp (8);
+      K5  per pixel gradients, atan2, magnitude and votes (~40), per bin a
+          weighted sum over <= 15x15 pixels (2 x 225);
+      K6  2 * n1 * n2 * nbits int8 tensor-core ops: a +-1 product of the
+          unpacked bits, the least the card could do it in (on the CUDA
+          cores this design needs n1 * n2 * nbits / 32 popc, see
+          knn2_hamming.cu)."""
+    if name == "fast_harris_nms_cells":
+        h, w = args[0].shape
+        return h * w + 12 * -(-h // 8) * w, 48.0 * h * w, 0.0
+    if name == "ic_moments_windows":
+        img, ys = args[0], args[1]
+        n = ys.shape[0]
+        return img.numel() + 16 * n, 4.0 * 705 * n, 0.0
+    if name == "bad_descriptors_windows":
+        img, n, nbits = args[0], args[1].shape[0], args[6]
+        return (img.numel() + 17 * n + n * nbits // 8,
+                2.0 * img.numel() + 9.0 * nbits * n, 0.0)
+    if name == "warp_patches_windows":
+        img, n = args[0], args[1].shape[0]
+        return img.numel() + 17 * n + 1024 * n, 12.0 * 1024 * n, 0.0
+    if name == "hs_hist_from_patches":
+        n = args[0].shape[0]
+        return 1152 * n, (40.0 * 1024 + 2 * 225 * 128) * n, 0.0
+    if name == "knn2_topk2":
+        q, vq, t, vt = args
+        n1, n2, nb = q.shape[0], t.shape[0], q.shape[1]
+        masks = (n1 if vq is not None else 0) + (n2 if vt is not None else 0)
+        return ((n1 + n2) * nb + masks + 12 * n1, 0.0,
+                2.0 * n1 * n2 * 8 * nb)
+    raise KeyError(name)
+
+
+def bound(name: str, calls) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a list of recorded (args, kwargs) calls: the
+    larger of bytes over the HBM rate and ops over their peak rate."""
+    nbytes = ops = tc = 0.0
+    for args, _ in calls:
+        b, o, t = _work(name, args)
+        nbytes, ops, tc = nbytes + b, ops + o, tc + t
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (ops / PEAK_F32 + tc / PEAK_INT8_TC) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def corner_err(Hm, H_true, hw) -> float:
+    """Largest distance (px) between where Hm and H_true send the four image
+    corners."""
+    h, w = hw
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]],
+                 np.float64)
+    a = c @ np.asarray(Hm, np.float64).T
+    b = c @ np.asarray(H_true, np.float64).T
+    return float(np.linalg.norm(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:],
+                                axis=1).max())
+
+
+def noisy_copies(rng, d2: np.ndarray, n: int, p: float) -> np.ndarray:
+    """n rows of d2 (random picks) with each bit flipped with probability
+    p: queries with a true nearest neighbour."""
+    src = d2[rng.integers(0, len(d2), n)]
+    flips = np.packbits(rng.random((n, d2.shape[1] * 8)) < p, axis=1)
+    return src ^ flips
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    sys.path.insert(0, str(REPO / "tests"))
-    from util import make_test_image
     from efficient_features_tpu_torch import (BAD, EfficientFeatures,
                                               HashSIFT, _build)
     from efficient_features_tpu_torch import pipeline as P
@@ -145,8 +274,15 @@ def main() -> int:
     from efficient_features_tpu_torch.ops import detect as D
     from efficient_features_tpu_torch.ops import detect_kernels as DK
     from efficient_features_tpu_torch.ops import image as I
+    from efficient_features_tpu_torch.ops import matcher as TM
     from efficient_features_tpu_torch.ops import orientation as O
+    from efficient_features_tpu_torch.ops import ransac as RS
     from efficient_features_tpu_torch.ops import window_kernels as WK
+    from efficient_features_tpu_torch.samples import sample_common as SC
+    from efficient_features_tpu_torch.samples.sample_common import \
+        make_test_image
+    from efficient_features_tpu_torch.samples import \
+        sample_image_sequence as SIS
 
     tpu = "efficient_features_tpu/ops/"
     # (module, wrapper name, plain version, CUDA source, TPU kernel bodies)
@@ -162,6 +298,9 @@ def main() -> int:
          f"{tpu}window_kernels.py:1741 (_warp_kernel_big)"),
         (WK, "hs_hist_from_patches", WK.hs_hist_from_patches_ref,
          "hs_hist.cu", tpu + "window_kernels.py:1656"),
+        (TM, "knn2_topk2", TM.knn2_topk2_ref, "knn2_hamming.cu",
+         f"{tpu}matcher.py:144 (_knn2_kernel, launched by _fused_topk2 "
+         f"{tpu}matcher.py:183)"),
     ]
     names = [n for _, n, *_ in kernels]
     detect_kernels = ["fast_harris_nms_cells", "ic_moments_windows"]
@@ -220,7 +359,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     sparse = torch.from_numpy(make_test_image(H, W, seed=2160)).to(dev)
-    scene = np.tile(make_test_image(H // 8, W // 8, seed=2160), (8, 8))
+    scene = SC.tiled_scene(H, W, seed=2160, distinct=False)
     img = torch.from_numpy(scene).to(dev)
     blurred = I.gaussian_blur7_u8(img)
     rng = np.random.default_rng(40000)
@@ -386,6 +525,69 @@ def main() -> int:
               f"unguarded product there differs in "
               f"{int((tf32 != want).sum())} bytes")
 
+    # -- K6: best-2 Hamming search, bit-identical -----------------------------
+    def check_knn2(label, q, vq, t, vt):
+        got = TM.knn2_topk2(q, vq, t, vt)
+        want = TM.knn2_topk2_ref(q, vq, t, vt)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("idx", "best", "second"), got, want):
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                bad = (a != b).nonzero()[:5].flatten().tolist()
+                fail(f"K6 {label}: {what} differs from plain at rows {bad}")
+        errs["knn2_topk2"] = max([errs["knn2_topk2"]]
+                                 + [max_abs_err(a, b) for a, b in
+                                    zip(got, want)])
+        return got
+
+    def knn2_inputs(nbytes, n1, n2, pool=False):
+        if pool:         # ties everywhere, a duplicate across train tiles
+            p = rng.integers(0, 256, (6, nbytes), dtype=np.uint8)
+            d1, d2 = p[rng.integers(0, 6, n1)], p[rng.integers(0, 6, n2)]
+            d2[n2 - 10] = d2[5]
+        else:            # random train rows, half the queries near one
+            d2 = rng.integers(0, 256, (n2, nbytes), dtype=np.uint8)
+            d1 = rng.integers(0, 256, (n1, nbytes), dtype=np.uint8)
+            d1[::2] = noisy_copies(rng, d2, len(d1[::2]), 0.05)
+        v1 = torch.from_numpy(rng.random(n1) > 0.2).to(dev)
+        v2 = torch.from_numpy(rng.random(n2) > 0.2).to(dev)
+        return (torch.from_numpy(d1).to(dev), v1,
+                torch.from_numpy(d2).to(dev), v2)
+
+    for nbytes in (32, 64):
+        q, v1, t, v2 = knn2_inputs(nbytes, N_KP, N_KP)
+        check_knn2(f"{8 * nbytes} bits unmasked", q, None, t, None)
+        j, best, _ = check_knn2(f"{8 * nbytes} bits masked", q, v1, t, v2)
+        if not (bool((j[~v1] == 0).all())
+                and bool((best[~v1] == TM.BIG).all())):
+            fail("K6: a row with no valid pair is not (j 0, best 1 << 30)")
+        for fn, args in (("match", (q, t)), ("knn2_ratio_match", (q, t)),
+                         ("knn2_ratio_match_masked", (q, v1, t, v2))):
+            before = TM.knn2_topk2.launches
+            got = getattr(TM, fn)(*args)
+            launched = TM.knn2_topk2.launches - before
+            with plain_kernels():
+                want = getattr(TM, fn)(*args)
+            if launched != 2 or not all(torch.equal(a, b)
+                                        for a, b in zip(got, want)):
+                fail(f"{fn} {8 * nbytes} bits: {launched} K6 launches, or "
+                     "outputs differ from the plain route")
+            print(f"{fn} {8 * nbytes} bits {N_KP} x {N_KP}: 2 K6 launches, "
+                  f"outputs identical to the plain route, "
+                  f"{int(got[2].sum())} kept")
+        qp, v1p, tp, v2p = knn2_inputs(nbytes, N_KP, N_KP - 1, pool=True)
+        check_knn2(f"{8 * nbytes} bits tie pool", qp, None, tp, None)
+        check_knn2(f"{8 * nbytes} bits tie pool masked", qp, v1p, tp, v2p)
+        j, best, second = check_knn2(f"{8 * nbytes} bits no valid train row",
+                                     qp[:1000], v1p[:1000], tp,
+                                     torch.zeros_like(v2p))
+        if bool((j != 0).any()) or bool((best != TM.BIG).any()):
+            fail("K6: no valid train row did not give (j 0, best 1 << 30)")
+        print(f"K6 {8 * nbytes} bits: bit-identical to plain at {N_KP} x "
+              f"{N_KP} unmasked and masked (20% invalid each side; invalid "
+              f"rows give j 0, best 1 << 30), on a 6-descriptor tie pool at "
+              f"{N_KP} x {N_KP - 1} (duplicate across tiles, n2 not a "
+              "multiple of 256) and with no valid train row")
+
     # -- main path 1: detect_and_compute through the kernels ----------------
     selection = ("x", "y", "octave", "size", "response", "valid", "count")
     detected = None
@@ -437,16 +639,7 @@ def main() -> int:
         if detected is None:
             detected = kps
 
-        syncs = 0
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                ef.detect_and_compute_async(img)
-                syncs = sum("synchroniz" in str(w.message) for w in caught)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        syncs = host_syncs(lambda: ef.detect_and_compute_async(img))
         slice_ms = time_ms(lambda: ef.detect_and_compute_async(img))
         with plain_kernels():
             plain_slice = time_ms(lambda: ef.detect_and_compute_async(img))
@@ -488,6 +681,157 @@ def main() -> int:
               f"on {H}x{W}: {comp_ms:.3f} ms/call through the kernels, "
               f"{plain_comp:.3f} ms/call plain [{hw}]")
 
+    # -- main path 3: the image-sequence step, through the kernels ----------
+    match_kernels = (detect_kernels + desc_kernels["hash_sift"]
+                     + ["knn2_topk2"])
+    base = SC.tiled_scene(H, W, seed=2160, distinct=True)
+    ty_rng = np.random.default_rng(0)          # as the sample's frame_iter
+    moves = [(2.0 * i, 5.0 * i, float(ty_rng.uniform(-3, 3)))
+             for i in range(SEQ_FRAMES)]
+    frames = [SC.warp_image(base, *mv) for mv in moves]
+    warps = [SC.warp_matrix((H, W), *mv) for mv in moves]
+    frames_dev = [torch.from_numpy(f).to(dev) for f in frames]
+    ef = EfficientFeatures(nfeatures=NFEATURES,
+                           descriptor_type="hash_sift_256", device="cuda")
+
+    def check_geometry(label, n_match, n_inl, Hm, H_true):
+        share = n_inl / max(n_match, 1)
+        err = corner_err(Hm, H_true, (H, W))
+        if n_match < MATCH_FLOOR or share <= INLIER_FLOOR or \
+                not err < CORNER_TOL:
+            fail(f"{label}: {n_match} matches (floor {MATCH_FLOOR}), "
+                 f"inlier share {share:.4f} (floor {INLIER_FLOOR}), corner "
+                 f"error {err:.3f} px (tolerance {CORNER_TOL})")
+        return (f"{n_match} matches, {n_inl} inliers (share {share:.4f}), "
+                f"corner error {err:.4f} px")
+
+    step, state = SIS.streaming_step_fn(
+        ef._cfg, (H, W), homography=True, ransac_iters=256,
+        ransac_thresh=RANSAC_THRESH, device="cuda")
+    seq, counts = drive("image sequence",
+                        lambda: [step(f) for f in frames_dev], match_kernels)
+    for i in range(1, SEQ_FRAMES):
+        count, n_match, Hm, n_inl = seq[i]
+        got = check_geometry(f"sequence frame {i}", int(n_match), int(n_inl),
+                             Hm.cpu().numpy(),
+                             warps[i] @ np.linalg.inv(warps[i - 1]))
+        print(f"sequence frame {i}: {int(count)} keypoints, {got}")
+    seq_syncs = host_syncs(lambda: step(frames_dev[1]))
+    seq_ms = time_ms(lambda: step(frames_dev[1]), iters=10)
+    print(f"sequence path {H}x{W}, HashSIFT-256, {NFEATURES} features, "
+          f"RANSAC 256 iterations: launches {counts}; "
+          f"{seq_ms:.3f} ms/step, host syncs per step {seq_syncs} [{hw}]")
+
+    # -- main path 4: the two-image sample path, through the kernels --------
+    def two_image():
+        k1, d1 = ef.detect_and_compute(frames[0])
+        k2, d2 = ef.detect_and_compute(frames[1])
+        j, dist, valid = TM.match(torch.from_numpy(d1).to(dev),
+                                  torch.from_numpy(d2).to(dev))
+        src = k1.xysa()[:, :2]
+        dst = k2.xysa()[:, :2][j.cpu().numpy()]
+        return (valid,) + RS.find_homography_ransac(
+            src, dst, valid, iters=512, thresh=RANSAC_THRESH, device="cuda")
+
+    (valid, Hm, inl, n_inl), counts = drive("two-image matching", two_image,
+                                            match_kernels)
+    got = check_geometry("two-image", int(valid.sum()), int(n_inl),
+                         Hm.cpu().numpy(), warps[1] @ np.linalg.inv(warps[0]))
+    if bool((inl & ~valid).any()):
+        fail("two-image: RANSAC kept a match the cross check dropped")
+    print(f"two-image path frames 0 -> 1: launches {counts}; {got}")
+
+    # -- the sequence path on the card vs the port on the CPU, 720x1280 ------
+    sample_frames = list(SIS.frame_iter(None, SEQ_FRAMES))
+    for dtype in ("bad_256", "hash_sift_256"):
+        kind = dtype.rsplit("_", 1)[0]
+        runs = {}
+        for d in ("cuda", "cpu"):
+            feat = EfficientFeatures(nfeatures=SAMPLE_NFEATURES,
+                                     descriptor_type=dtype, device=d)
+            st, stt = SIS.streaming_step_fn(feat._cfg, SAMPLE_HW,
+                                            homography=True, device=d)
+            runs[d] = []
+            for f in sample_frames:
+                out = st(f)
+                runs[d].append(({k: v.to("cpu", copy=True)
+                                 for k, v in stt.items()},
+                                [t.cpu() for t in out]))
+        ndiff = n_mdiff = 0
+        h_err = 0.0
+        for i in range(SEQ_FRAMES):
+            (sg, og), (sc, oc) = runs["cuda"][i], runs["cpu"][i]
+            if not (torch.equal(sg["valid"], sc["valid"])
+                    and torch.equal(sg["xy"], sc["xy"])
+                    and int(og[0]) == int(oc[0])):
+                fail(f"720p {dtype} frame {i}: slots differ from the CPU")
+            ndiff = max(ndiff, int((sg["desc"] != sc["desc"]).sum()))
+            if ndiff > byte_budget(kind, sc["desc"].numel()):
+                fail(f"720p {dtype} frame {i}: {ndiff} descriptor bytes "
+                     "differ from the CPU")
+            if i == 0:
+                continue
+            prev = runs["cuda"][i - 1][0]
+            args = (prev["desc"], prev["valid"], sg["desc"], sg["valid"])
+            on_card = TM.knn2_ratio_match_masked(*(a.to(dev) for a in args))
+            on_cpu = TM.knn2_ratio_match_masked(*args)
+            if not all(torch.equal(a.cpu(), b)
+                       for a, b in zip(on_card, on_cpu)):
+                fail(f"720p {dtype} frame {i}: the matcher on the card "
+                     "differs from the CPU on the same descriptors")
+            if torch.equal(sg["desc"], sc["desc"]) and \
+                    int(og[1]) != int(oc[1]):
+                fail(f"720p {dtype} frame {i}: match counts differ")
+            n_mdiff = max(n_mdiff, abs(int(og[1]) - int(oc[1])))
+            j, _, ok = on_cpu
+            src, dst = prev["xy"], sg["xy"][j.long()]
+            idx = RS._draw_minimal_sets(ok, 256,
+                                        torch.Generator().manual_seed(0))
+            Hc, _, nc = RS._ransac_from_indices(src, dst, ok, RANSAC_THRESH,
+                                                idx)
+            Hg, _, ng = RS._ransac_from_indices(
+                src.to(dev), dst.to(dev), ok.to(dev), RANSAC_THRESH,
+                idx.to(dev))
+            h_true = (SC.warp_matrix(SAMPLE_HW, *moves[i])
+                      @ np.linalg.inv(SC.warp_matrix(SAMPLE_HW,
+                                                     *moves[i - 1])))
+            errs_i = (corner_err(Hg.cpu().numpy(), Hc.numpy(), SAMPLE_HW),
+                      corner_err(Hg.cpu().numpy(), h_true, SAMPLE_HW),
+                      corner_err(Hc.numpy(), h_true, SAMPLE_HW))
+            h_err = max(h_err, errs_i[0])
+            if not (errs_i[0] < SAMPLE_H_TOL and max(errs_i[1:]) < CORNER_TOL):
+                fail(f"720p {dtype} frame {i}: RANSAC H card vs CPU "
+                     f"{errs_i[0]} px, card vs warp {errs_i[1]} px, CPU vs "
+                     f"warp {errs_i[2]} px at the corners; inliers card "
+                     f"{int(ng)}, CPU {int(nc)} of {int(ok.sum())}")
+            print(f"720p {dtype} frame {i}: RANSAC H card vs CPU "
+                  f"{errs_i[0]:.4f} px, card vs warp {errs_i[1]:.4f} px, "
+                  f"CPU vs warp {errs_i[2]:.4f} px at the corners; inliers "
+                  f"card {int(ng)}, CPU {int(nc)} of {int(ok.sum())} "
+                  "matches")
+        print(f"720p sequence {dtype}, {SAMPLE_NFEATURES} features: slots "
+              f"bit-identical to the CPU port, descriptors differ in at "
+              f"most {ndiff} bytes, matcher identical on the same "
+              f"descriptors, match counts differ by at most {n_mdiff}, "
+              f"RANSAC H within {h_err:.2e} px of the CPU at the corners "
+              "(same minimal sets)")
+
+    # -- RANSAC alone at 40000 slots ------------------------------------------
+    slots1, desc1 = P.detect_and_compute_core(frames_dev[1], ef._cfg)
+    slots2, desc2 = P.detect_and_compute_core(frames_dev[2], ef._cfg)
+    j, _, ok = TM.knn2_ratio_match_masked(desc1, slots1["valid"], desc2,
+                                          slots2["valid"])
+    xy1 = torch.stack([slots1["x"], slots1["y"]], dim=1)
+    xy2 = torch.stack([slots2["x"], slots2["y"]], dim=1)[j.long()]
+    for iters in (256, 512):
+        r_ms = time_ms(lambda: RS.find_homography_ransac(
+            xy1, xy2, ok, iters=iters, thresh=RANSAC_THRESH, device="cuda"))
+        r_syncs = host_syncs(lambda: RS.find_homography_ransac(
+            xy1, xy2, ok, iters=iters, thresh=RANSAC_THRESH, device="cuda"))
+        print(f"time find_homography_ransac {iters} iterations, "
+              f"{xy1.shape[0]} slots ({int(ok.sum())} valid): {r_ms:.3f} "
+              f"ms/call, host syncs per call {r_syncs} [{hw}]")
+
     # -- kernel times: one main-path call's launches, replayed --------------
     times = {}
     for m, name, ref, *_ in kernels:
@@ -498,19 +842,57 @@ def main() -> int:
             for args, kwargs in calls:
                 f(*args, **kwargs)
 
+        plain_iters = 3 if name == "knn2_topk2" else ITERS
         times[name] = (time_ms(lambda: replay(fn)),
-                       time_ms(lambda: replay(ref)))
+                       time_ms(lambda: replay(ref), iters=plain_iters,
+                               warmup=1))
         print(f"time {name}: {len(calls)} launches of the first main-path "
               f"call that ran it, kernel {times[name][0]:.3f} ms, plain "
               f"{times[name][1]:.3f} ms [{hw}]")
 
-    print(f"main-path launches (both paths, all runs): {totals}")
+    # the dense path's GEMM alone (not the same function): a +-1 f16 product
+    # of the unpacked bits of K6's inputs, the yardstick for K6
+    pm1 = [(TM.unpack_bits_pm1(a[0]).half(), TM.unpack_bits_pm1(a[2]).half())
+           for a, _ in recorded["knn2_topk2"]]
+    gemm_out = torch.empty((max(a.shape[0] for a, _ in pm1),
+                            max(b.shape[0] for _, b in pm1)),
+                           dtype=torch.float16, device=dev)
+
+    def gemms():
+        for a, b in pm1:
+            torch.matmul(a, b.T, out=gemm_out[:a.shape[0], :b.shape[0]])
+
+    library = dict.fromkeys(names)
+    library_call = {"knn2_topk2": "torch.matmul of the +-1 f16 unpacked "
+                    "bits: the dense path's GEMM alone, not the same "
+                    "function"}
+    library["knn2_topk2"] = time_ms(gemms)
+    print(f"time knn2_topk2 yardstick: the dense path's +-1 f16 GEMM alone "
+          f"(not the same function) on the same {len(pm1)} input pairs: "
+          f"{library['knn2_topk2']:.3f} ms [{hw}]")
+    del gemm_out, pm1
+    for nbytes in (32, 64):
+        d = torch.from_numpy(rng.integers(0, 256, (N_KP, nbytes),
+                                          dtype=np.uint8)).to(dev)
+        k6_ms = time_ms(lambda: TM.knn2_topk2(d, None, d, None), iters=5)
+        print(f"time knn2_topk2 {8 * nbytes} bits, one launch at {N_KP} x "
+              f"{N_KP}: {k6_ms:.3f} ms, bound "
+              f"{bound('knn2_topk2', [((d, None, d, None), {})])[0]:.4f} "
+              f"ms [{hw}]")
+    bounds = {name: bound(name, recorded[name]) for name in names}
+    for name in names:
+        print(f"bound {name}: {bounds[name][0]:.4f} ms by "
+              f"{bounds[name][1]} for the replayed launches")
+
+    print(f"main-path launches (all paths, all runs): {totals}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "efficient_features_tpu_torch/csrc/" + source,
          "replaces": replaces, "launches": totals[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library[name],
+         "library_call": library_call.get(name)}
         for _, name, _, source, replaces in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

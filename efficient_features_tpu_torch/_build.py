@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles every source in `csrc/` for `sm_90a` into one shared library
+`nvcc` compiles every source in `csrc/` for `sm_90a`, one process per
+source, all started together, and links the objects into one shared library
 with a plain C interface (csrc/eff_kernels.h), loaded with `ctypes`; no
 PyTorch headers are compiled, so a build takes seconds.  The library lands in
 `_build/`, named by a hash of the sources and flags, so an edited source
@@ -26,8 +27,7 @@ _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +39,7 @@ _SIGNATURES = {
                             _I, _P, _P],
     "eff_warp_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "eff_hs_hist": [_P, _I, _P, ctypes.c_float, _P, _P],
+    "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -61,6 +62,35 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the nvcc commands concurrently; append their output to the build
+    log and raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        _State.log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n"
+                           + _State.log)
+
+
+def _compile_and_link(srcs: list[Path], tmp: Path, so: Path) -> None:
+    nvcc = _nvcc()
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    objs = [str(tmp / f"{p.stem}.o") for p in cus]
+    _State.log = ""
+    _run([[nvcc, *NVCC_FLAGS, "-I", str(_SRC), "-c", "-o", o, str(p)]
+          for p, o in zip(cus, objs)])
+    lib = str(tmp / so.name)
+    _run([[nvcc, "-shared", "-o", lib, *objs]])
+    os.replace(lib, so)   # atomic: a concurrent process never sees half
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     if _State.lib is not None:
@@ -75,19 +105,10 @@ def library() -> ctypes.CDLL:
         _State.build_seconds = 0.0
     else:
         _OUT.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_SRC), "-o", tmp,
-               *(str(p) for p in srcs if p.suffix == ".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=_OUT) as tmp:
+            _compile_and_link(srcs, Path(tmp), so)
         _State.build_seconds = time.perf_counter() - t0
-        _State.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{_State.log}")
-        os.replace(tmp, so)   # atomic: concurrent builders never see half
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

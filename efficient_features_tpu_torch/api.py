@@ -126,7 +126,7 @@ def _keypoints_to_xysa(keypoints) -> np.ndarray:
     return a
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -214,7 +214,7 @@ class BAD(_DescriptorBase):
             raise ValueError("BAD supports 256 or 512 bits")
         self._scale = float(scale_factor)
         self._nbits = nbits
-        self._device = _resolve_device(device)
+        self._device = resolve_device(device)
 
     @staticmethod
     def create(scale_factor: float = 1.0, nbits: int = 256,
@@ -241,7 +241,7 @@ class HashSIFT(_DescriptorBase):
         self._scale = float(cropping_scale)
         self._nbits = nbits
         self._sigma = float(sigma)
-        self._device = _resolve_device(device)
+        self._device = resolve_device(device)
 
     @staticmethod
     def create(cropping_scale: float = 1.0, nbits: int = 256,
@@ -261,7 +261,7 @@ class EfficientFeatures:
             nfeatures=nfeatures, scale_factor=scale_factor, nlevels=nlevels,
             first_level=first_level, fast_threshold=fast_threshold,
             nonmax_radius=nonmax_radius, descriptor_type=descriptor_type)
-        self._device = _resolve_device(device)
+        self._device = resolve_device(device)
 
     create = staticmethod(lambda *a, **kw: EfficientFeatures(*a, **kw))
 

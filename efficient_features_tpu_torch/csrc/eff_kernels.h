@@ -4,7 +4,8 @@
 // void*), does not synchronise, allocates nothing, and returns
 // cudaGetLastError() right after the launch (0 on success).  Outputs and
 // inputs are device pointers to contiguous row-major tensors that the Python
-// wrappers (ops/detect_kernels.py, ops/window_kernels.py) allocate and check.
+// wrappers (ops/detect_kernels.py, ops/window_kernels.py, ops/matcher.py)
+// allocate and check.
 #pragma once
 
 #include <stdint.h>
@@ -58,6 +59,17 @@ int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
 // orientation-major e[o*16 + rc].
 int eff_hs_hist(const uint8_t* patches, int n, const float* wcore,
                 float ori_scale, uint8_t* out, void* stream);
+
+// K6: best-2 Hamming search.  q: (n1, nbytes) and t: (n2, nbytes) uint8
+// descriptors, 16-byte aligned, nbytes 32 or 64; valid_q (n1,) and
+// valid_t (n2,) uint8 masks, or NULL for all valid.  Per query row:
+// best_idx (lowest index of the nearest train row), best and second
+// (int32; a pair with an invalid side counts 1 << 30, second is INT32_MAX
+// when n2 == 1).
+int eff_knn2_hamming(const uint8_t* q, const uint8_t* valid_q, int n1,
+                     const uint8_t* t, const uint8_t* valid_t, int n2,
+                     int nbytes, int32_t* best_idx, int32_t* best,
+                     int32_t* second, void* stream);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

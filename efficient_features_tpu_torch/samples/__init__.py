@@ -1,0 +1,5 @@
+"""Command-line samples of the port (counterparts of `samples/`).
+
+    python -m efficient_features_tpu_torch.samples.sample_feature_matching
+    python -m efficient_features_tpu_torch.samples.sample_image_sequence
+"""

@@ -180,3 +180,85 @@ def test_hash_sift_slice_on_the_card_matches_the_cpu(dev, descriptor_type):
     got = HashSIFT(1.0, nbits, device="cuda").compute(scene, kp)
     want = HashSIFT(1.0, nbits, device="cpu").compute(scene, kp)
     assert int((got != want).sum()) <= int(1e-4 * want.size) + 1
+
+
+def _pool_descriptors(nbytes, n1, n2, seed):
+    """Rows from a pool of 6 descriptors (ties everywhere), an exact
+    duplicate across K6's 256-row train tiles, n2 not a multiple of 256."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (6, nbytes), dtype=np.uint8)
+    d1 = pool[rng.integers(0, 6, n1)]
+    d2 = pool[rng.integers(0, 6, n2)]
+    d2[n2 - 3] = d2[17]
+    return d1, d2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes", [32, 64])
+@pytest.mark.parametrize("kind", ["ties", "random"])
+def test_knn2_kernel_matches_plain(dev, nbytes, kind):
+    from efficient_features_tpu_torch.ops import matcher as TM
+    if kind == "ties":
+        d1, d2 = _pool_descriptors(nbytes, 700, 1101, seed=nbytes)
+    else:
+        rng = np.random.default_rng(nbytes)
+        d1 = rng.integers(0, 256, (700, nbytes), dtype=np.uint8)
+        d2 = rng.integers(0, 256, (1101, nbytes), dtype=np.uint8)
+        d1[::2] = d2[:350]
+    rng = np.random.default_rng(1)
+    v1 = torch.from_numpy(rng.random(700) > 0.2).to(dev)
+    v2 = torch.from_numpy(rng.random(1101) > 0.2).to(dev)
+    v1[5] = True
+    q, t = torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev)
+    for vq, vt in ((None, None), (v1, v2),
+                   (v1, torch.zeros_like(v2))):   # no valid pair at all
+        before = TM.knn2_topk2.launches
+        got = TM.knn2_topk2(q, vq, t, vt)
+        assert TM.knn2_topk2.launches == before + 1
+        want = TM.knn2_topk2_ref(q, vq, t, vt)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[1][5]) == TM.BIG and int(got[0][5]) == 0
+    for fn, args in ((TM.match, (q, t)), (TM.knn2_ratio_match, (q, t)),
+                     (TM.knn2_ratio_match_masked, (q, v1, t, v2))):
+        got = fn(*args)
+        want = fn(*(a.cpu() for a in args))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_knn2_kernel_rejects_bad_input(dev):
+    from efficient_features_tpu_torch.ops import matcher as TM
+    d = torch.zeros((8, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="256- or 512-bit"):
+        TM.knn2_topk2(d[:, :16].contiguous(), None, d[:, :16].contiguous(),
+                      None)
+    with pytest.raises(ValueError, match="contiguous"):
+        TM.knn2_topk2(d.t().contiguous().t()[:, :32], None, d, None)
+    with pytest.raises(ValueError, match="on"):
+        TM.knn2_topk2(d, torch.ones(8, dtype=torch.bool), d, None)
+
+
+@pytest.mark.cuda
+def test_sequence_step_on_the_card_matches_the_cpu(dev):
+    from efficient_features_tpu_torch.samples import sample_common as SC
+    from efficient_features_tpu_torch.samples import \
+        sample_image_sequence as SIS
+    base = make_test_image(240, 320, seed=9)
+    frames = [SC.warp_image(base, 2.0 * i, 5.0 * i, 1.0) for i in range(3)]
+    outs = {}
+    for d in ("cuda", "cpu"):
+        feat = EfficientFeatures(nfeatures=300, descriptor_type="bad_256",
+                                 device=d)
+        step, state = SIS.streaming_step_fn(feat._cfg, base.shape,
+                                            homography=True, device=d)
+        outs[d] = [[t.cpu() for t in step(f)] for f in frames]
+        outs[d + "_state"] = {k: v.cpu() for k, v in state.items()}
+    assert torch.equal(outs["cuda_state"]["valid"], outs["cpu_state"]["valid"])
+    assert int((outs["cuda_state"]["desc"] != outs["cpu_state"]["desc"]).sum()
+               ) <= _budget(outs["cpu_state"]["desc"].numel())
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert int(g[0]) == int(c[0])
+        assert abs(int(g[1]) - int(c[1])) <= 2
+    assert int(outs["cuda"][2][3]) / int(outs["cuda"][2][1]) > 0.6

@@ -16,6 +16,17 @@ from efficient_features_tpu_torch.ops import detect_kernels as TDK
 from util import make_test_image
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These small inputs gain nothing from intra-op threads, and in a
+    parallel test run the threads of each worker contend with the others'
+    (measured 13x slower beside one other torch test process)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 

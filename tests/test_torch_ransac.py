@@ -1,0 +1,170 @@
+"""The port's RANSAC (ops/ransac.py) against the JAX package's, on the CPU.
+
+`torch.Generator` cannot reproduce `jax.random.gumbel`, so the parity test
+draws the minimal sets the JAX way (Gumbel noise from the same key, masked,
+top 4) and hands them to the port's `_ransac_from_indices`.  Tolerances:
+  - H's action on a 7x7 grid over the scene within 1e-2 px (float32
+    `eigh` on two backends);
+  - inlier masks equal except for points whose squared error lies within
+    1e-3 px^2 of the threshold's square.
+The behaviour tests mirror `tests/test_ransac.py` on the port.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from efficient_features_tpu.ops import ransac as JR
+from efficient_features_tpu_torch.ops import ransac as TR
+
+from test_ransac import _apply_h, _scene
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These small inputs gain nothing from intra-op threads, and in a
+    parallel test run the threads of each worker contend with the others'
+    (measured 13x slower beside one other torch test process)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _grid(n=7):
+    return np.stack(np.meshgrid(np.linspace(0, 1000, n),
+                                np.linspace(0, 1000, n)), -1).reshape(-1, 2)
+
+
+def _grid_err(H, H_ref, n=7):
+    g = _grid(n)
+    return np.linalg.norm(_apply_h(np.asarray(H, np.float64), g)
+                          - _apply_h(np.asarray(H_ref, np.float64), g),
+                          axis=1).max()
+
+
+def jax_indices(valid, iters, seed):
+    """The minimal sets `_ransac_core` draws from PRNGKey(seed)."""
+    g = jax.random.gumbel(jax.random.PRNGKey(seed), (iters, len(valid)))
+    g = jnp.where(jnp.asarray(valid)[None], g, -jnp.inf)
+    return np.array(jax.lax.top_k(g, 4)[1])
+
+
+def _port(src, dst, valid, thresh, idx):
+    return TR._ransac_from_indices(
+        torch.from_numpy(src.astype(np.float32)),
+        torch.from_numpy(dst.astype(np.float32)),
+        torch.from_numpy(valid), thresh, torch.from_numpy(idx).long())
+
+
+@pytest.mark.parametrize("seed,iters,masked", [(0, 512, False),
+                                               (3, 256, True),
+                                               (9, 64, False)])
+def test_injected_indices_match_jax(seed, iters, masked):
+    _, src, dst, _ = _scene(seed=seed)
+    valid = np.ones(len(src), bool)
+    if masked:
+        valid[::5] = False
+    thresh = 3.0
+    H_j, inl_j, n_j = JR._ransac_core(
+        jnp.asarray(src, jnp.float32), jnp.asarray(dst, jnp.float32),
+        jnp.asarray(valid), jnp.float32(thresh), jax.random.PRNGKey(seed),
+        iters)
+    H_t, inl_t, n_t = _port(src, dst, valid, thresh,
+                            jax_indices(valid, iters, seed))
+    assert H_t.dtype == torch.float32 and H_t.shape == (3, 3)
+    assert inl_t.dtype == torch.bool and n_t.dtype == torch.int32
+    assert _grid_err(H_t.numpy(), np.asarray(H_j)) < 1e-2
+    inl_j = np.asarray(inl_j)
+    diff = inl_t.numpy() != inl_j
+    e2 = ((_apply_h(np.asarray(H_j, np.float64), src) - dst) ** 2).sum(1)
+    assert (np.abs(e2[diff] - thresh * thresh) < 1e-3).all()
+    assert int(n_t) == int(inl_t.sum())
+    assert abs(int(n_t) - int(n_j)) <= int(diff.sum())
+
+
+def test_recovers_homography_with_outliers():
+    H_true, src, dst, gt_inl = _scene()
+    H, inl, n_inl = TR.find_homography_ransac(src, dst, thresh=3.0,
+                                              device="cpu")
+    inl = inl.numpy()
+    assert _grid_err(H.numpy(), H_true) < 1.5
+    assert inl[gt_inl].mean() > 0.97
+    assert inl[~gt_inl].mean() < 0.03
+    assert int(n_inl) == inl.sum()
+
+
+def test_deterministic_for_one_seed():
+    _, src, dst, _ = _scene(seed=3)
+    a = TR.find_homography_ransac(src, dst, seed=7, device="cpu")
+    b = TR.find_homography_ransac(src, dst, seed=7, device="cpu")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    gen = torch.Generator().manual_seed(7)
+    valid = torch.ones(len(src), dtype=torch.bool)
+    first = TR._draw_minimal_sets(valid, 32, gen)
+    gen.manual_seed(7)
+    assert torch.equal(first, TR._draw_minimal_sets(valid, 32, gen))
+    # every set holds 4 distinct indices
+    assert (first.sort(dim=1).values.diff(dim=1) > 0).all()
+
+
+def test_valid_mask_excludes_rows():
+    H_true, src, dst, _ = _scene(seed=5, outlier_frac=0.0, noise=0.2)
+    valid = np.ones(len(src), bool)
+    valid[::4] = False
+    dst[::4] = 1e6              # poison the masked rows
+    H, inl, _ = TR.find_homography_ransac(src, dst, valid=valid,
+                                          device="cpu")
+    assert not inl.numpy()[::4].any()
+    assert _grid_err(H.numpy(), H_true, 5) < 1.5
+    idx = TR._draw_minimal_sets(torch.from_numpy(valid), 64,
+                                torch.Generator().manual_seed(0))
+    assert valid[idx.numpy()].all()
+
+
+def test_exact_on_clean_minimal_data():
+    H_true, src, dst, _ = _scene(seed=9, outlier_frac=0.0, noise=0.0)
+    H, inl, n_inl = TR.find_homography_ransac(src, dst, thresh=1.0,
+                                              iters=64, device="cpu")
+    assert int(n_inl) == len(src)
+    assert _grid_err(H.numpy(), H_true, 5) < 1e-2
+
+
+def test_input_validation():
+    with pytest.raises(ValueError, match="at least 4"):
+        TR.find_homography_ransac(np.zeros((3, 2)), np.zeros((3, 2)),
+                                  device="cpu")
+    with pytest.raises(ValueError, match=r"\(N, 2\)"):
+        TR.find_homography_ransac(np.zeros((5, 3)), np.zeros((5, 3)),
+                                  device="cpu")
+    with pytest.raises(ValueError, match=r"\(N, 2\)"):
+        TR.find_homography_ransac(np.zeros((5, 2)), np.zeros((6, 2)),
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("n_valid", [0, 3])
+def test_degenerate_too_few_valid(n_valid):
+    _, src, dst, _ = _scene(seed=11, n=64)
+    valid = np.zeros(64, bool)
+    valid[:n_valid] = True
+    _, inl, n_inl = TR.find_homography_ransac(src, dst, valid=valid,
+                                              iters=32, device="cpu")
+    inl = inl.numpy()
+    assert int(n_inl) <= n_valid and not inl[~valid].any()
+
+
+def test_same_h_under_tf32_setting():
+    """The products run in full float32 whatever the caller's setting, and
+    the caller's setting is restored."""
+    _, src, dst, _ = _scene(seed=4)
+    want = TR.find_homography_ransac(src, dst, device="cpu")
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = TR.find_homography_ransac(src, dst, device="cpu")
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

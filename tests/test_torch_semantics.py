@@ -107,7 +107,10 @@ def test_port_imports_without_jax():
         "import efficient_features_tpu_torch as T\n"
         "from efficient_features_tpu_torch import _build\n"
         "from efficient_features_tpu_torch.ops import detect_kernels, "
-        "window_kernels\n"
+        "window_kernels, matcher, ransac\n"
+        "from efficient_features_tpu_torch.samples import sample_common, "
+        "sample_feature_matching, sample_image_sequence\n"
+        "from efficient_features_tpu_torch.tools import profile_paths\n"
         "assert 'jaxlib' not in sys.modules\n"
         "print(sorted(T.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
