@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `efficient_features_tpu_torch/csrc` and
-checks each against its plain PyTorch version on the card: K1 cells, K2 IC
+checks each against its plain PyTorch version on the card: K1 cells (with
+and without its ROI mask input, radius 10-48), K7 dense FAST+Harris+NMS
+and K8 dense FAST+Harris (radius 1-9, five images, bit-exact), K9 disc NMS
+(radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
 moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
 31*1.2^k and 300 px), K5 HashSIFT histogram (deterministic, zero patch ->
 zero row) and K6 best-2 Hamming search (bit-identical at 40000 x 40000, 256
@@ -26,7 +29,14 @@ launch count set to 0 just before and read just after:
   - the two-image path of `samples.sample_feature_matching` on frames 0
     and 1: `detect_and_compute` twice, cross-checked `match`,
     `find_homography_ransac` (512 iterations), with the same checks.
-At the samples' own size (720x1280, 3000 features) the sequence path on the
+  - the detector's configurations through `detect_and_compute`,
+    HashSIFT-256 and BAD-256: (a) `mask=` the ROI of
+    `sample_common.roi_mask` at radius 15 (K1 with its mask), (b) radius 5
+    (K7), (c) radius 5 with the ROI (K8, the mask, K9), (d) radius 64 (K8,
+    K9), each checked against the plain path on the card, each detect
+    kernel launched once per level.
+At the samples' own size (720x1280, 3000 features) configurations (a)-(d)
+are held against the port on the CPU, and the sequence path on the
 card is held against the port on the CPU: slots bit-identical, descriptors
 within budget, matcher outputs identical on the same descriptors, RANSAC's
 homography within SAMPLE_H_TOL on the same minimal sets.
@@ -149,6 +159,15 @@ def tie_image() -> np.ndarray:
     return img
 
 
+def tie_mask() -> np.ndarray:
+    """ROI of `tie_image` that cuts one of its two tied 8x8 blocks and
+    leaves the other tied (tests/test_torch_cuda.py's tie mask): selection
+    still takes the dense fallback, which must apply the mask."""
+    mask = np.full((96, 160), 255, np.uint8)
+    mask[:, 66:] = 0
+    return mask
+
+
 def wrap_image() -> np.ndarray:
     """A FAST-9 arc wrapping the index-0 tap (tests/test_kernels.py's
     wrap-run test)."""
@@ -191,7 +210,12 @@ def _work(name: str, args) -> tuple[float, float, float]:
     each input read once and each output written once, and the work the
     function needs on these inputs.  Op counts are per-element estimates of
     the algorithm's own arithmetic, each op counted once:
-      K1  FAST-9 at every pixel: 16 differences, 32 threshold compares;
+      K1  FAST-9 at every pixel: 16 differences, 32 threshold compares
+          (the NMS compares are not counted); with a mask, 1 B more read
+          per pixel;
+      K7, K8  as K1, dense: 1 B read and 4 B written per pixel;
+      K9  4 B read and 1 B of bool written per pixel, one compare per
+          pixel (the disc compares are not counted);
       K2  a multiply-add per moment per disc pixel: 4 x 705 per keypoint;
       K3  the integral image (2 adds per pixel) and per bit two box sums
           (3 adds each) and the weighted compare (3);
@@ -204,7 +228,15 @@ def _work(name: str, args) -> tuple[float, float, float]:
           knn2_hamming.cu)."""
     if name == "fast_harris_nms_cells":
         h, w = args[0].shape
-        return h * w + 12 * -(-h // 8) * w, 48.0 * h * w, 0.0
+        masked = len(args) > 3 and args[3] is not None
+        return (h * w * (2 if masked else 1) + 12 * -(-h // 8) * w,
+                48.0 * h * w, 0.0)
+    if name in ("fast_harris_nms", "fast_harris"):
+        h, w = args[0].shape
+        return 5 * h * w, 48.0 * h * w, 0.0
+    if name == "radius_nms":
+        h, w = args[0].shape
+        return 5 * h * w, 1.0 * h * w, 0.0
     if name == "ic_moments_windows":
         img, ys = args[0], args[1]
         n = ys.shape[0]
@@ -301,6 +333,15 @@ def main() -> int:
         (TM, "knn2_topk2", TM.knn2_topk2_ref, "knn2_hamming.cu",
          f"{tpu}matcher.py:144 (_knn2_kernel, launched by _fused_topk2 "
          f"{tpu}matcher.py:183)"),
+        (DK, "fast_harris_nms", DK.fast_harris_nms_ref, "fast_harris_nms.cu",
+         f"{tpu}pallas_kernels.py:419 (_fast_harris_nms_kernel, launched by "
+         f"fast_harris_nms {tpu}pallas_kernels.py:501)"),
+        (DK, "fast_harris", DK.fast_harris_ref, "fast_harris.cu",
+         f"{tpu}pallas_kernels.py:96 (_fast_harris_kernel, launched by "
+         f"fast_harris {tpu}pallas_kernels.py:197)"),
+        (DK, "radius_nms", DK.radius_nms_ref, "radius_nms.cu",
+         f"{tpu}pallas_kernels.py:241 (_nms_kernel, launched by radius_nms "
+         f"{tpu}pallas_kernels.py:297)"),
     ]
     names = [n for _, n, *_ in kernels]
     detect_kernels = ["fast_harris_nms_cells", "ic_moments_windows"]
@@ -316,6 +357,7 @@ def main() -> int:
     # -- main-path runs: counts set to 0 just before, read just after -------
     totals = dict.fromkeys(names, 0)
     recorded = {}    # kernel -> its calls in the first run that launched it
+    last_calls = {}  # kernel -> its calls in the latest run
 
     def drive(label, fn, expect):
         calls = {n: [] for n in names}
@@ -342,6 +384,8 @@ def main() -> int:
             totals[n] += c
             if c and n not in recorded:
                 recorded[n] = calls[n]
+        last_calls.clear()
+        last_calls.update(calls)
         return out, {n: counts[n] for n in expect}
 
     hw = card()
@@ -410,6 +454,93 @@ def main() -> int:
     # radius 1 suppresses nothing, so the wrap-run corner itself must show
     if not bool(torch.isfinite(check_cells("wrap", wrap, radius=1)[0][3, 32])):
         fail("K1 missed the wrap-run corner")
+
+    def check_same(label, name, got, want):
+        """Bit-identical outputs of a kernel and its plain version."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist() \
+                if got.shape == want.shape else "shape"
+            fail(f"{label} differs from plain: shapes {tuple(got.shape)} "
+                 f"{tuple(want.shape)}, first differing {bad}")
+        errs[name] = max(errs[name], max_abs_err(got, want))
+
+    # -- K7, K8: dense FAST + Harris (+ NMS) vs plain, bit-exact -------------
+    crop = img[:H - 1, :W - 3].contiguous()          # ragged tiles both ways
+    for label, image in (("scene", sparse), ("tiled scene", img),
+                         ("tie", tie), ("wrap", wrap), ("crop", crop)):
+        resp8 = DK.fast_harris(image, 20)
+        check_same(f"K8 {label}", "fast_harris", resp8,
+                   DK.fast_harris_ref(image, 20))
+        live = []
+        for radius in (1, 3, 5, 9):
+            got = DK.fast_harris_nms(image, 20, radius)
+            check_same(f"K7 {label} radius {radius}", "fast_harris_nms", got,
+                       DK.fast_harris_nms_ref(image, 20, radius))
+            live.append(int(torch.isfinite(got).sum()))
+        print(f"K7, K8 {label} {tuple(image.shape)}: bit-exact; "
+              f"{int(torch.isfinite(resp8).sum())} corners, survivors at "
+              f"radius 1/3/5/9: {live}")
+    # radius 1 suppresses nothing, so the wrap-run corner itself must show
+    if not bool(torch.isfinite(DK.fast_harris_nms(wrap, 20, 1)[24, 32])):
+        fail("K7 missed the wrap-run corner")
+
+    # -- K9: disc NMS at any radius vs plain, bit-exact -----------------------
+    mask_rng = np.random.default_rng(5)
+    rnd = torch.from_numpy(mask_rng.random((H, W)) < 0.5).to(dev)
+    resp8 = DK.fast_harris(img, 20)
+    for label, resp in (("unmasked", resp8),
+                        ("random mask", torch.where(rnd, resp8,
+                                                    D.RESP_SENTINEL))):
+        live = []
+        for radius in (3, 9, 15, 49, 64, 128):
+            got = DK.radius_nms(resp, radius)
+            check_same(f"K9 {label} radius {radius}", "radius_nms", got,
+                       DK.radius_nms_ref(resp, radius))
+            live.append(int(got.sum()))
+        print(f"K9 tiled scene {H}x{W} {label}: bit-exact; survivors at "
+              f"radius 3/9/15/49/64/128: {live}")
+    del resp8
+
+    # -- K1 with its ROI mask vs plain, bit-exact -----------------------------
+    roi_np = SC.roi_mask(H, W)
+    roi = torch.from_numpy(roi_np).to(dev)
+    for radius in (10, 15, 22, 48):
+        unmasked = DK.fast_harris_nms_cells(img, 20, radius)
+        cnt = []
+        for label, m in (("roi", roi != 0), ("random", rnd),
+                         ("all-255", torch.ones_like(rnd))):
+            got = DK.fast_harris_nms_cells(img, 20, radius, m)
+            for what, a, b in zip(("cellmax", "cellrow", "cellcnt"), got,
+                                  DK.fast_harris_nms_cells_ref(img, 20,
+                                                               radius, m)):
+                check_same(f"K1 mask {label} radius {radius} {what}",
+                           "fast_harris_nms_cells", a, b)
+            cnt.append(int(got[2].sum()))
+        if not all(torch.equal(a, b) for a, b in zip(got, unmasked)):
+            fail(f"K1 radius {radius}: an all-255 mask differs from none")
+        print(f"K1 masked {H}x{W} radius {radius}: bit-exact under the ROI, "
+              f"a random and an all-255 mask (survivors {cnt}; unmasked "
+              f"{int(unmasked[2].sum())}, equal to all-255)")
+
+    # the tie image under a mask that cuts one tied block: the masked dense
+    # fallback runs on the card
+    D.select_topk_cells.fallbacks = 0
+    tie_kps = [EfficientFeatures(nfeatures=64, nlevels=1,
+                                 descriptor_type="bad_256", device=d).detect(
+                                     tie_image(), mask=tie_mask())._slots
+               for d in ("cuda", "cpu")]
+    if D.select_topk_cells.fallbacks != 2 or int(tie_kps[1]["count"]) != 3 \
+            or not all(torch.equal(tie_kps[0][k].cpu(), tie_kps[1][k])
+                       for k in tie_kps[1] if k != "angle") or float(
+                (tie_kps[0]["angle"].cpu() - tie_kps[1]["angle"]).abs().max()
+            ) >= ANGLE_TOL:
+        fail("masked tie image: the dense fallback on the card differs from "
+             f"the CPU ({D.select_topk_cells.fallbacks} fallbacks)")
+    print("masked tie image detect: dense fallback taken with the mask, "
+          f"{int(tie_kps[0]['count'])} keypoints (3 expected), slots "
+          "bit-identical to the CPU port")
 
     # -- K2: IC moments, exact ----------------------------------------------
     ys = rng.integers(0, H, N_KP).astype(np.int32)
@@ -741,6 +872,69 @@ def main() -> int:
         fail("two-image: RANSAC kept a match the cross check dropped")
     print(f"two-image path frames 0 -> 1: launches {counts}; {got}")
 
+    # -- main path 5: the detector's configurations, ROI mask and radius ----
+    # (tag, nonmax_radius, with the ROI, the detect kernels of its route)
+    configs = [("a", 15, True, ["fast_harris_nms_cells"]),
+               ("b", 5, False, ["fast_harris_nms"]),
+               ("c", 5, True, ["fast_harris", "radius_nms"]),
+               ("d", 64, False, ["fast_harris", "radius_nms"])]
+    config_calls = {}
+    for dtype in ("hash_sift_256", "bad_256"):
+        kind = dtype.rsplit("_", 1)[0]
+        for tag, radius, masked, route in configs:
+            ef = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=radius,
+                                   descriptor_type=dtype, device="cuda")
+            m_host = roi_np if masked else None
+            m_dev = roi if masked else None
+            label = (f"config ({tag}) {dtype} radius {radius}"
+                     f"{' mask=roi' if masked else ''}")
+            (kps, desc), counts = drive(
+                label, lambda: ef.detect_and_compute_async(scene,
+                                                           mask=m_host),
+                ["ic_moments_windows"] + route + desc_kernels[kind])
+            if any(counts[k] != ef.get_n_levels() for k in route):
+                fail(f"{label}: {counts} launches, expected one per level "
+                     "of each detect kernel")
+            config_calls.setdefault(tag, {
+                k: last_calls[k] for k in route})
+            slots = kps._slots
+            n = kps.count
+            if not (0 < n <= NFEATURES) or not all(
+                    bool(torch.isfinite(slots[k]).all())
+                    for k in ("x", "y", "response", "angle")):
+                fail(f"{label}: {n} keypoints, or non-finite slots")
+            if bool((desc[~slots["valid"]] != 0).any()):
+                fail(f"{label}: an invalid slot has a nonzero descriptor row")
+            with plain_kernels():
+                kps_p, desc_p = ef.detect_and_compute_async(scene,
+                                                            mask=m_host)
+            for k in selection + ("angle",):
+                if not torch.equal(slots[k], kps_p._slots[k]):
+                    fail(f"{label}: slot {k!r} differs from the plain path")
+            ndiff = int((desc != desc_p).sum())
+            budget = byte_budget(kind, desc.numel())
+            if ndiff > budget:
+                fail(f"{label}: {ndiff} descriptor bytes differ from the "
+                     f"plain path (budget {budget})")
+            inside = ""
+            if masked:      # level-0 keypoints lie inside the ROI
+                lvl0 = slots["valid"] & (slots["octave"] == 0)
+                ys, xs = slots["y"][lvl0].long(), slots["x"][lvl0].long()
+                if not bool((roi[ys, xs] != 0).all()):
+                    fail(f"{label}: a level-0 keypoint outside the ROI")
+                inside = f", {int(lvl0.sum())} level-0 keypoints all inside"
+            if tag == "a":
+                det = ef.detect(scene, mask=roi_np)._slots
+                if not all(torch.equal(det[k], slots[k]) for k in selection):
+                    fail(f"{label}: detect() differs from detect_and_compute")
+            syncs = host_syncs(
+                lambda: ef.detect_and_compute_async(img, mask=m_dev))
+            ms = time_ms(lambda: ef.detect_and_compute_async(img, mask=m_dev))
+            print(f"{label}: {n} keypoints{inside}; launches {counts}; slots "
+                  f"bit-identical to the plain path, {ndiff} descriptor "
+                  f"bytes differ (budget {budget}); {ms:.3f} ms/call, host "
+                  f"syncs per call {syncs} [{hw}]")
+
     # -- the sequence path on the card vs the port on the CPU, 720x1280 ------
     sample_frames = list(SIS.frame_iter(None, SEQ_FRAMES))
     for dtype in ("bad_256", "hash_sift_256"):
@@ -816,6 +1010,38 @@ def main() -> int:
               f"RANSAC H within {h_err:.2e} px of the CPU at the corners "
               "(same minimal sets)")
 
+    # -- configurations (a)-(d) on the card vs the port on the CPU, 720p -----
+    sample_scene = SC.make_bench_image(*SAMPLE_HW, seed=9)
+    sample_roi = SC.roi_mask(*SAMPLE_HW)
+    for dtype in ("hash_sift_256", "bad_256"):
+        kind = dtype.rsplit("_", 1)[0]
+        for tag, radius, masked, _ in configs:
+            runs = {}
+            for d in ("cuda", "cpu"):
+                feat = EfficientFeatures(nfeatures=SAMPLE_NFEATURES,
+                                         nonmax_radius=radius,
+                                         descriptor_type=dtype, device=d)
+                k, dsc = feat.detect_and_compute_async(
+                    sample_scene, mask=sample_roi if masked else None)
+                runs[d] = ({kk: v.cpu() for kk, v in k._slots.items()},
+                           dsc.cpu())
+            (sg, dg), (sc, dc) = runs["cuda"], runs["cpu"]
+            label = f"720p config ({tag}) {dtype} radius {radius}"
+            for k in selection:
+                if not torch.equal(sg[k], sc[k]):
+                    fail(f"{label}: slot {k!r} differs from the CPU port")
+            dang = (sg["angle"] - sc["angle"]).abs()
+            dang = float(torch.minimum(dang, 360 - dang).max())
+            ndiff = int((dg != dc).sum())
+            budget = byte_budget(kind, dc.numel())
+            if ndiff > budget or dang >= ANGLE_TOL:
+                fail(f"{label}: {ndiff} descriptor bytes differ from the CPU "
+                     f"(budget {budget}), angles {dang}")
+            print(f"{label}{' mask=roi' if masked else ''}: "
+                  f"{int(sc['count'])} keypoints, slots bit-identical to the "
+                  f"CPU port, angles within {dang:.2e} deg, {ndiff} "
+                  f"descriptor bytes differ (budget {budget})")
+
     # -- RANSAC alone at 40000 slots ------------------------------------------
     slots1, desc1 = P.detect_and_compute_core(frames_dev[1], ef._cfg)
     slots2, desc2 = P.detect_and_compute_core(frames_dev[2], ef._cfg)
@@ -849,6 +1075,24 @@ def main() -> int:
         print(f"time {name}: {len(calls)} launches of the first main-path "
               f"call that ran it, kernel {times[name][0]:.3f} ms, plain "
               f"{times[name][1]:.3f} ms [{hw}]")
+
+    for label, name, calls in (
+            ("masked, config (a)", "fast_harris_nms_cells",
+             config_calls["a"]["fast_harris_nms_cells"]),
+            ("radius 64, config (d)", "radius_nms",
+             config_calls["d"]["radius_nms"])):
+        fn, ref = getattr(DK, name), getattr(DK, name + "_ref")
+
+        def replay(f, calls=calls):
+            for args, kwargs in calls:
+                f(*args, **kwargs)
+
+        k_ms = time_ms(lambda: replay(fn))
+        p_ms = time_ms(lambda: replay(ref), warmup=1)
+        b_ms, b_by = bound(name, calls)
+        print(f"time {name} {label}: {len(calls)} launches, kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by} [{hw}]")
 
     # the dense path's GEMM alone (not the same function): a +-1 f16 product
     # of the unpacked bits of K6's inputs, the yardstick for K6

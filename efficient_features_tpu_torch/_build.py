@@ -32,8 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "eff_fast_harris_nms_cells": [_P, _I, _I, _I, _I, _P, ctypes.c_float,
-                                  _P, _P, _P, _P],
+    "eff_fast_harris_nms_cells": [_P, _P, _I, _I, _I, _I, _P,
+                                  ctypes.c_float, _P, _P, _P, _P],
+    "eff_fast_harris_nms": [_P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],
+    "eff_fast_harris": [_P, _I, _I, _I, ctypes.c_float, _P, _P],
+    "eff_radius_nms": [_P, _I, _I, _I, _P, _P, _P],
     "eff_ic_moments": [_P, _I, _I, _P, _P, _I, _P, _P],
     "eff_bad_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                             _I, _P, _P],

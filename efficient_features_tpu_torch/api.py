@@ -10,8 +10,9 @@ The device is explicit: `EfficientFeatures(..., device="cuda")` (and `BAD`,
 `device="cpu"` runs the plain versions of the kernels.  The `_async` methods
 enqueue on the current CUDA stream and return device tensors;
 `KeyPoints.block()` waits for that stream.
-The tie-fallback decision reads one flag per pyramid level, so an `_async`
-call still syncs the host once per level.
+On the cells route (nonmax_radius 10..48) the tie-fallback decision reads
+one flag per pyramid level, so an `_async` call still syncs the host once
+per level there.
 """
 from __future__ import annotations
 
@@ -111,6 +112,20 @@ def _as_u8_image(image, device: torch.device) -> torch.Tensor:
     if img.dtype != torch.uint8 or img.dim() != 2:
         raise ValueError("image must be a 2-D uint8 (grayscale) array")
     return img.to(device).contiguous()
+
+
+def _as_mask(mask, shape: tuple, device: torch.device) -> torch.Tensor:
+    """Validate a user ROI mask (8-bit, nonzero = search here; a numpy
+    array or a tensor) and return it as a bool tensor on `device`.
+    Keypoints are detected only where the mask is nonzero, and masked-out
+    corners take no part in the NMS (the CUDA reference accepts the argument
+    but ignores it; the JAX package implements it, and so does the port)."""
+    m = mask if isinstance(mask, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(mask))
+    if tuple(m.shape) != shape:
+        raise ValueError(f"mask shape {tuple(m.shape)} != image shape "
+                         f"{shape}")
+    return m.to(device) != 0
 
 
 def _keypoints_to_xysa(keypoints) -> np.ndarray:
@@ -269,14 +284,15 @@ class EfficientFeatures:
     def device(self) -> torch.device:
         return self._device
 
-    def _image(self, image, mask, mesh) -> torch.Tensor:
-        if mask is not None:
-            raise _not_ported("mask=", "masked detect")
+    def _inputs(self, image, mask, mesh):
+        """(image, mask or None) as tensors on the detector's device."""
         if mesh is not None:
             raise _not_ported("mesh=", "parallel/sharding.py")
         img = _as_u8_image(image, self._device)
         P.validate_image_shape(self._cfg, *img.shape)
-        return img
+        if mask is not None:
+            mask = _as_mask(mask, tuple(img.shape), self._device)
+        return img, mask
 
     # -- detection ---------------------------------------------------------
 
@@ -284,8 +300,8 @@ class EfficientFeatures:
         return self.detect_async(image, mask, mesh).block()
 
     def detect_async(self, image, mask=None, mesh=None) -> KeyPoints:
-        img = self._image(image, mask, mesh)
-        return KeyPoints(P.detect(img, self._cfg))
+        img, mask = self._inputs(image, mask, mesh)
+        return KeyPoints(P.detect(img, self._cfg, mask))
 
     def compute(self, image, keypoints) -> np.ndarray:
         return self._describer().compute(image, keypoints)
@@ -308,8 +324,8 @@ class EfficientFeatures:
     def detect_and_compute_async(self, image, mask=None, mesh=None):
         """(KeyPoints, slot-aligned (capacity, bytes) uint8 device tensor);
         invalid slots have zero rows."""
-        img = self._image(image, mask, mesh)
-        slots, descs = P.detect_and_compute(img, self._cfg)
+        img, mask = self._inputs(image, mask, mesh)
+        slots, descs = P.detect_and_compute(img, self._cfg, mask)
         return KeyPoints(slots), descs
 
     def convert(self, keypoints: KeyPoints):

@@ -14,20 +14,21 @@
 extern "C" {
 #endif
 
-// Largest nonmax radius the cells kernel's disc table and shared-memory plan
-// cover (the detector default is 15).
+// Largest nonmax radius the staged detect kernels' (K1, K7) disc table and
+// shared-memory plan cover (the detector default is 15).
 #define EFF_CELLS_MAX_RADIUS 48
 
 // K1: FAST-9 + Harris + disc NMS, reduced to 8-row x 1-col cells.
-// img: (h, w) uint8.  disc_wdx: host array of 2*(radius-1)+1 half-widths,
-// entry i for dy = i - (radius-1) (semantics.disc_row_extents).  Outputs are
+// img: (h, w) uint8; mask: (h, w) uint8 ROI (nonzero = search here) or NULL
+// for none.  disc_wdx: host array of 2*(radius-1)+1 half-widths, entry i for
+// dy = i - (radius-1) (semantics.disc_row_extents).  Outputs are
 // (ceil(h/8), w): cell max response (-inf if no survivor), lowest global row
 // of a maximal survivor (INT32_MAX if none), survivor count.
-int eff_fast_harris_nms_cells(const uint8_t* img, int h, int w, int threshold,
-                              int radius, const int32_t* disc_wdx,
-                              float harris_s2, float* cellmax,
-                              int32_t* cellrow, int32_t* cellcnt,
-                              void* stream);
+int eff_fast_harris_nms_cells(const uint8_t* img, const uint8_t* mask, int h,
+                              int w, int threshold, int radius,
+                              const int32_t* disc_wdx, float harris_s2,
+                              float* cellmax, int32_t* cellrow,
+                              int32_t* cellcnt, void* stream);
 
 // K2: intensity-centroid moments over the radius-15 U_MAX disc.
 // img: (h, w) uint8; ys, xs: (n,) int32.  out: (n, 2) int32 [m01, m10].
@@ -70,6 +71,25 @@ int eff_knn2_hamming(const uint8_t* q, const uint8_t* valid_q, int n1,
                      const uint8_t* t, const uint8_t* valid_t, int n2,
                      int nbytes, int32_t* best_idx, int32_t* best,
                      int32_t* second, void* stream);
+
+// K7: FAST-9 + Harris + disc NMS, dense.  img: (h, w) uint8; radius
+// 1..EFF_CELLS_MAX_RADIUS, disc_wdx as for K1.  out: (h, w) float32, the
+// response of surviving border-valid corners, -inf elsewhere.
+int eff_fast_harris_nms(const uint8_t* img, int h, int w, int threshold,
+                        int radius, const int32_t* disc_wdx, float harris_s2,
+                        float* out, void* stream);
+
+// K8: FAST-9 + Harris, dense.  img: (h, w) uint8.  out: (h, w) float32, the
+// response at border-valid corners, -inf elsewhere.
+int eff_fast_harris(const uint8_t* img, int h, int w, int threshold,
+                    float harris_s2, float* out, void* stream);
+
+// K9: disc NMS of a -inf-masked (h, w) float32 response, any radius >= 1.
+// disc_wdx: DEVICE array of 2*(radius-1)+1 half-widths, as for K1.
+// out: (h, w) uint8 (a torch.bool tensor), 1 where center != -inf and
+// center >= every response in the open disc.
+int eff_radius_nms(const float* resp, int h, int w, int radius,
+                   const int32_t* disc_wdx, uint8_t* out, void* stream);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

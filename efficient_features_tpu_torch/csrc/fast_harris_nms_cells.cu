@@ -5,7 +5,8 @@
 // `fast_harris_nms_cells` :765).  Semantics, per pixel: FAST-9 segment test
 // (two-mask rotate-AND chain), exact-int Sobel and 7x7 structure-tensor
 // sums, Harris response with truncated mantissas and k = 3/64 (every float
-// product exact), the 15 px border, and disc NMS where ties co-survive.
+// product exact), the 15 px border, an optional ROI mask, and disc NMS
+// where ties co-survive.
 // Each 8-row x 1-col cell is then reduced to (max survivor response, lowest
 // global row of a maximal survivor, survivor count); dead cells hold
 // (-inf, INT32_MAX, 0).  Output is exactly (ceil(h/8), w).
@@ -15,143 +16,31 @@
 // sums read 98 int16 gradients per corner.  Global traffic is small: one
 // u8 read per pixel (plus halo) and 12 bytes per 8 pixels written.
 //
-// Design: one 256-thread block per 32x64 output tile.  The block stages
-// the tile plus a (radius - 1 + 4) px halo of u8 pixels in shared memory,
-// computes Sobel gradients once (int16), then the masked response of the
-// tile plus its R = radius - 1 ring (-inf outside corners / border /
-// image), so no response ever goes to device memory.  Harris runs only at
-// FAST corners inside the border, and each survivor check stops at the
-// first larger neighbour; most pixels are not corners, so both are short.
-// Each thread then owns one cell (4 cell rows x 64 columns = 256 cells).
-// Build with -fmad=false: the truncations below keep Harris products exact,
-// and no sum may be contracted into an FMA.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "eff_kernels.h"
+// Design (detect_common.cuh): one 256-thread block per 32x64 output tile
+// stages the masked response of the tile plus its R = radius - 1 ring in
+// shared memory, so no response ever goes to device memory.  The optional
+// ROI mask (NULL for none) is read per response pixel and gates the whole
+// ring, as the TPU kernel ANDs it into `inb` over its extended region
+// (pallas_kernels.py:735-740): a masked-out corner neither survives nor
+// suppresses.  Each survivor check stops at the first larger neighbour; most
+// pixels are not corners, so it is short.  Each thread then owns one cell
+// (4 cell rows x 64 columns = 256 cells).
+#include "detect_common.cuh"
 
 namespace {
 
-constexpr int kTileH = 32;
-constexpr int kTileW = 64;
-constexpr int kThreads = (kTileH / 8) * kTileW;
-constexpr int kHalo = 4;          // FAST circle 3; Sobel 1 + box window 3
-constexpr int kBorder = 15;       // HALF_PATCH_SIZE
-constexpr float kHarrisK = 3.0f / 64.0f;
-
-// FAST_CIRCLE (semantics.py) in circular bit order
-__constant__ int kFastDy[16] = {3, 3, 2, 1, 0, -1, -2, -3,
-                                -3, -3, -2, -1, 0, 1, 2, 3};
-__constant__ int kFastDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                0, -1, -2, -3, -3, -3, -2, -1};
-
-struct DiscTable {
-  int wdx[2 * EFF_CELLS_MAX_RADIUS];
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ float trunc_mantissa(float x, int drop) {
-  return __int_as_float(__float_as_int(x) & ~((1 << drop) - 1));
-}
-
-__device__ __forceinline__ bool any_run9(unsigned m) {
-  unsigned acc = m;
-#pragma unroll
-  for (int s = 1; s < 9; ++s) acc &= ((m >> s) | (m << (16 - s))) & 0xFFFFu;
-  return acc != 0;
-}
-
-__device__ __forceinline__ bool fast9(const uint8_t* p, int stride,
-                                      int threshold) {
-  const int c = p[0];
-  const int hi = c + threshold;
-  const int lo = c - threshold;
-  unsigned brighter = 0, darker = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int v = p[kFastDy[k] * stride + kFastDx[k]];
-    brighter |= static_cast<unsigned>(v > hi) << k;
-    darker |= static_cast<unsigned>(v < lo) << k;
-  }
-  return any_run9(brighter) || any_run9(darker);
-}
-
-size_t smem_bytes(int R) {
-  const size_t eh = kTileH + 2 * R, ew = kTileW + 2 * R;
-  return eh * ew * sizeof(float) + 2 * (eh + 6) * (ew + 6) * sizeof(int16_t)
-         + (eh + 8) * (ew + 8);
-}
-
 __global__ void __launch_bounds__(kThreads)
-cells_kernel(const uint8_t* __restrict__ img, int h, int w, int threshold,
-             int R, DiscTable disc, float s2, float* __restrict__ cellmax,
-             int32_t* __restrict__ cellrow, int32_t* __restrict__ cellcnt) {
+cells_kernel(const uint8_t* __restrict__ img, const uint8_t* __restrict__ mask,
+             int h, int w, int threshold, int R, DiscTable disc, float s2,
+             float* __restrict__ cellmax, int32_t* __restrict__ cellrow,
+             int32_t* __restrict__ cellcnt) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int eh = kTileH + 2 * R, ew = kTileW + 2 * R;  // response region
-  const int gh = eh + 6, gw = ew + 6;                  // gradient region
-  const int wh = eh + 8, ww = ew + 8;                  // pixel window
-  float* resp = reinterpret_cast<float*>(smem);
-  int16_t* gxs = reinterpret_cast<int16_t*>(resp + eh * ew);
-  int16_t* gys = gxs + gh * gw;
-  uint8_t* win = reinterpret_cast<uint8_t*>(gys + gh * gw);
-
+  const Stage st = stage_layout(smem, R);
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
+  stage_masked_response(img, mask, h, w, threshold, R, s2, y0, x0, st);
 
-  // 1. pixels of the tile + halo; zero outside the image
-  for (int i = threadIdx.x; i < wh * ww; i += kThreads) {
-    const int gy = y0 - R - kHalo + i / ww;
-    const int gx = x0 - R - kHalo + i % ww;
-    win[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                 ? img[static_cast<size_t>(gy) * w + gx] : 0;
-  }
-  __syncthreads();
-
-  // 2. Sobel; gradient (i, j) sits at window (i + 1, j + 1)
-  for (int i = threadIdx.x; i < gh * gw; i += kThreads) {
-    const uint8_t* p = win + (i / gw + 1) * ww + (i % gw + 1);
-    const int mm = p[-ww - 1], m0 = p[-ww], mp = p[-ww + 1];
-    const int zm = p[-1], zp = p[1];
-    const int pm = p[ww - 1], p0 = p[ww], pp = p[ww + 1];
-    gxs[i] = static_cast<int16_t>((pp + 2 * zp + mp) - (pm + 2 * zm + mm));
-    gys[i] = static_cast<int16_t>((pm + 2 * p0 + pp) - (mm + 2 * m0 + mp));
-  }
-  __syncthreads();
-
-  // 3. masked response; response (r, c) is image (y0 - R + r, x0 - R + c),
-  //    window (r + 4, c + 4), and its 7x7 box starts at gradient (r, c)
-  for (int i = threadIdx.x; i < eh * ew; i += kThreads) {
-    const int r = i / ew, c = i % ew;
-    const int gy = y0 - R + r, gx = x0 - R + c;
-    float v = neg_inf();
-    if (gy >= kBorder && gy < h - kBorder && gx >= kBorder &&
-        gx < w - kBorder &&
-        fast9(win + (r + kHalo) * ww + (c + kHalo), ww, threshold)) {
-      int sxx = 0, sxy = 0, syy = 0;
-      for (int dy = 0; dy < 7; ++dy) {
-        const int16_t* rx = gxs + (r + dy) * gw + c;
-        const int16_t* ry = gys + (r + dy) * gw + c;
-#pragma unroll
-        for (int dx = 0; dx < 7; ++dx) {
-          const int a = rx[dx], b = ry[dx];
-          sxx += a * a;
-          sxy += a * b;
-          syy += b * b;
-        }
-      }
-      const float fxx = trunc_mantissa(__fmul_rn(s2, __int2float_rn(sxx)), 12);
-      const float fxy = trunc_mantissa(__fmul_rn(s2, __int2float_rn(sxy)), 12);
-      const float fyy = trunc_mantissa(__fmul_rn(s2, __int2float_rn(syy)), 12);
-      const float tr = trunc_mantissa(__fadd_rn(fxx, fyy), 13);
-      const float det = __fsub_rn(__fmul_rn(fxx, fyy), __fmul_rn(fxy, fxy));
-      v = __fsub_rn(det, __fmul_rn(kHarrisK, __fmul_rn(tr, tr)));
-    }
-    resp[i] = v;
-  }
-  __syncthreads();
-
-  // 4. one cell per thread: disc NMS of its 8 pixels, then the reduction
+  // one cell per thread: disc NMS of its 8 pixels, then the reduction
   const int cr = threadIdx.x / kTileW, cc = threadIdx.x % kTileW;
   const int cell_y = blockIdx.y * (kTileH / 8) + cr;
   const int x = x0 + cc;
@@ -161,21 +50,9 @@ cells_kernel(const uint8_t* __restrict__ img, int h, int w, int threshold,
   int count = 0;
   for (int k = 0; k < 8; ++k) {
     const int ty = cr * 8 + k;
-    const float* center = resp + (ty + R) * ew + (cc + R);
+    const float* center = st.resp + (ty + R) * st.ew + (cc + R);
     const float v = *center;
-    if (v == neg_inf()) continue;
-    bool survive = true;
-    for (int dy = -R; dy <= R && survive; ++dy) {
-      const int wd = disc.wdx[dy + R];
-      const float* row = center + dy * ew;
-      for (int dx = -wd; dx <= wd; ++dx) {
-        if (row[dx] > v) {
-          survive = false;
-          break;
-        }
-      }
-    }
-    if (!survive) continue;
+    if (v == neg_inf() || !survives(center, v, st.ew, R, disc)) continue;
     ++count;
     if (v > best) {  // rows ascend: the first maximal survivor is the lowest
       best = v;
@@ -190,7 +67,8 @@ cells_kernel(const uint8_t* __restrict__ img, int h, int w, int threshold,
 
 }  // namespace
 
-extern "C" int eff_fast_harris_nms_cells(const uint8_t* img, int h, int w,
+extern "C" int eff_fast_harris_nms_cells(const uint8_t* img,
+                                         const uint8_t* mask, int h, int w,
                                          int threshold, int radius,
                                          const int32_t* disc_wdx,
                                          float harris_s2, float* cellmax,
@@ -200,14 +78,12 @@ extern "C" int eff_fast_harris_nms_cells(const uint8_t* img, int h, int w,
     return cudaErrorInvalidValue;
   const int R = radius - 1;
   DiscTable disc;
-  for (int i = 0; i < 2 * R + 1; ++i) disc.wdx[i] = disc_wdx[i];
-  const size_t smem = smem_bytes(R);
-  cudaError_t err = cudaFuncSetAttribute(
-      cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  size_t smem;
+  const cudaError_t err = prepare(cells_kernel, R, disc_wdx, &disc, &smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   cells_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, threshold, R, disc, harris_s2, cellmax, cellrow, cellcnt);
+      img, mask, h, w, threshold, R, disc, harris_s2, cellmax, cellrow,
+      cellcnt);
   return cudaGetLastError();
 }

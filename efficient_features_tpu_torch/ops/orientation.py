@@ -54,10 +54,3 @@ def angles_from_moments(moments: torch.Tensor,
     deg = _RAD2DEG * ang
     return torch.where(valid, deg, torch.zeros_like(deg))
 
-
-def ic_angles(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
-    """Angles in degrees [0, 360) for (quota,) keypoint slots (0 where
-    invalid)."""
-    return angles_from_moments(ic_moments(img, ys, xs), valid)
-

@@ -55,7 +55,8 @@ ic_moments_windows.launches = 0
 def ic_angles_windows(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
     """IC angles in degrees (0 where invalid); the moments come from K2 on a
-    CUDA tensor.  On a CPU tensor this is `orientation.ic_angles`."""
+    CUDA tensor and from the plain `orientation.ic_moments` on a CPU
+    tensor."""
     return O.angles_from_moments(ic_moments_windows(image, ys, xs), valid)
 
 

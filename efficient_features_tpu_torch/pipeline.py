@@ -4,8 +4,9 @@ Port of `efficient_features_tpu/pipeline.py` for BAD and HashSIFT.
 Keypoint slots: each pyramid level owns a fixed `quota` range of the output
 arrays (ORB geometric split); invalid slots are masked; slot order within a
 level is (response desc, index asc).  Everything runs eagerly on the input's
-device.  Per level, the only host sync is `select_topk_cells` reading whether
-a tie fallback is needed.
+device.  Per level on the cells route (nonmax_radius 10..48), the only host
+sync is `select_topk_cells` reading whether a tie fallback is needed; the
+other routes read nothing back.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ from .ops import bad as ops_bad
 from .ops import hash_sift as ops_hs
 from .ops import image as ops_image
 from .ops import detect as ops_detect
-from .ops import orientation as ops_orient
 from .ops import detect_kernels as DK
 from .ops import window_kernels as WK
 
@@ -89,55 +89,66 @@ def validate_image_shape(cfg: FeatureConfig, h: int, w: int):
             "reduce nlevels or scale_factor")
 
 
-def require_ported(cfg: FeatureConfig, device: torch.device):
-    """Raise NotImplementedError for the paths the port does not have yet."""
-    if device.type != "cpu" and cfg.nonmax_radius < 10:
-        raise NotImplementedError(
-            "nonmax_radius < 10 on a GPU needs the fast_harris_nms kernel, "
-            "not ported yet (ROADMAP.md queue B, 'fast_harris_nms')")
-    if device.type != "cpu" and cfg.nonmax_radius > DK.MAX_RADIUS:
-        raise NotImplementedError(
-            f"nonmax_radius > {DK.MAX_RADIUS} on a GPU exceeds the cells "
-            "kernel's shared-memory plan, not ported yet (ROADMAP.md queue "
-            "A, 'nonmax_radius > 48')")
-
-
-def _dense_selection(img, quota, cfg: FeatureConfig):
+def _dense_selection(img, quota, cfg: FeatureConfig, lvl_mask=None):
     """Exact dense (vals, flat_idx) top-`quota`: the tie fallback of
-    `select_topk_cells`."""
+    `select_topk_cells`, with the level's ROI mask applied before the NMS as
+    the cells kernel applies it."""
     h, w = img.shape
-    corner = (ops_detect.fast_corner_mask(img, cfg.fast_threshold)
-              & ops_detect.border_mask(h, w, S.HALF_PATCH_SIZE, img.device))
+    corner = DK.border_corners(img, cfg.fast_threshold)
+    if lvl_mask is not None:
+        corner = corner & lvl_mask
     resp = ops_detect.canonical_zero(ops_detect.harris_response(img))
     surv = ops_detect.radius_nms(resp, corner, cfg.nonmax_radius)
     masked = torch.where(surv, resp, ops_detect.RESP_SENTINEL)
     return ops_detect.topk_stable(masked.reshape(-1), min(quota, h * w))
 
 
-def _detect_level(img, quota, cfg: FeatureConfig):
-    """One pyramid level: FAST -> Harris -> NMS -> top-k -> angles."""
+def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
+    """One pyramid level: FAST -> Harris -> NMS -> top-k -> angles.
+
+    lvl_mask (optional bool map): the user's ROI mask at this level, applied
+    before the NMS like the border, so masked-out corners never suppress.
+    The route follows the JAX package's `_detect_level` on every device (the
+    kernel wrappers choose kernel or plain version from the tensor's
+    device):
+      - 10 <= radius <= DK.MAX_RADIUS: K1, cells, with the mask;
+      - radius < 10, no mask: K7, dense suppressed map;
+      - radius < 10 with a mask, or radius > DK.MAX_RADIUS: K8, the mask,
+        K9.  Above DK.MAX_RADIUS the JAX package takes the cells kernel;
+        cells selection is by its contract the exact dense top-k, so this
+        route selects the same keypoints.  It is chosen by configuration:
+        K1's shared-memory plan covers radius 1..DK.MAX_RADIUS.
+    """
     h, w = img.shape
-    if min(h, w) > 2 * S.HALF_PATCH_SIZE and cfg.nonmax_radius >= 10:
-        cm, crow, ccnt = DK.fast_harris_nms_cells(img, cfg.fast_threshold,
-                                                  cfg.nonmax_radius)
-        ys, xs, r, valid = ops_detect.select_topk_cells(
-            cm, crow, ccnt, h, w, quota,
-            lambda: _dense_selection(img, quota, cfg))
+    radius = cfg.nonmax_radius
+    if min(h, w) > 2 * S.HALF_PATCH_SIZE:
+        if 10 <= radius <= DK.MAX_RADIUS:
+            cm, crow, ccnt = DK.fast_harris_nms_cells(
+                img, cfg.fast_threshold, radius, lvl_mask)
+            ys, xs, r, valid = ops_detect.select_topk_cells(
+                cm, crow, ccnt, h, w, quota,
+                lambda: _dense_selection(img, quota, cfg, lvl_mask))
+        else:
+            if radius < 10 and lvl_mask is None:
+                suppressed = DK.fast_harris_nms(img, cfg.fast_threshold,
+                                                radius)
+            else:
+                resp = DK.fast_harris(img, cfg.fast_threshold)
+                if lvl_mask is not None:
+                    resp = torch.where(lvl_mask, resp,
+                                       ops_detect.RESP_SENTINEL)
+                surv = DK.radius_nms(resp, radius)
+                suppressed = torch.where(surv, resp, ops_detect.RESP_SENTINEL)
+            ys, xs, r, valid = ops_detect.select_topk(
+                suppressed, suppressed != ops_detect.RESP_SENTINEL, quota)
         ang = WK.ic_angles_windows(img, ys, xs, valid)
         return ys, xs, r, ang, valid
-    # as in the JAX package, levels too small to hold a keypoint (and
-    # nonmax_radius < 10 on the CPU) take the dense path on every device
-    corner = ops_detect.fast_corner_mask(img, cfg.fast_threshold)
-    b = S.HALF_PATCH_SIZE
-    if h > 2 * b and w > 2 * b:
-        corner = corner & ops_detect.border_mask(h, w, b, img.device)
-    else:
-        corner = torch.zeros_like(corner)
-    resp = ops_detect.harris_response(img)
-    surv = ops_detect.radius_nms(resp, corner, cfg.nonmax_radius)
-    ys, xs, r, valid = ops_detect.select_topk(resp, surv, quota)
-    ang = ops_orient.ic_angles(img, ys, xs, valid)
-    return ys, xs, r, ang, valid
+    # a level too small for the 31 px patch selects nothing (its border mask
+    # is empty), as in the JAX package: every slot invalid and zero
+    idx = torch.zeros(quota, dtype=torch.int32, device=img.device)
+    val = torch.zeros(quota, dtype=torch.float32, device=img.device)
+    return idx, idx, val, val, torch.zeros(quota, dtype=torch.bool,
+                                           device=img.device)
 
 
 def level_slot_ranges(cfg: FeatureConfig, img_h: int, img_w: int):
@@ -156,15 +167,40 @@ def level_slot_ranges(cfg: FeatureConfig, img_h: int, img_w: int):
     return tuple(out)
 
 
-def detect_core(image: torch.Tensor, cfg: FeatureConfig):
+def _mask_pyramid(mask: torch.Tensor, shapes) -> list[torch.Tensor]:
+    """Nearest-neighbour ROI mask per pyramid level (bool): level pixel
+    (y, x) takes the level-0 pixel its half-pixel center falls on, row
+    (2y + 1) * h0 // (2h), clipped, in exact integers as the JAX package's
+    `_mask_pyramid` (float coordinates drift by one pixel at some level)."""
+    base = mask != 0
+    h0, w0 = shapes[0]
+    dev = mask.device
+    levels = [base]
+    for (h, w) in shapes[1:]:
+        yy = ((torch.arange(h, device=dev) * 2 + 1) * h0 // (2 * h)
+              ).clamp(0, h0 - 1)
+        xx = ((torch.arange(w, device=dev) * 2 + 1) * w0 // (2 * w)
+              ).clamp(0, w0 - 1)
+        levels.append(base.index_select(0, yy).index_select(1, xx))
+    return levels
+
+
+def detect_core(image: torch.Tensor, cfg: FeatureConfig,
+                mask: torch.Tensor | None = None):
     """Returns (slots, levels, per_level): the per-slot dict over
     sum(quotas[first_level:]) slots, the pyramid, and per-level
-    (s, ys, xs, valid, ang) in level coordinates."""
-    validate_image_shape(cfg, int(image.shape[0]), int(image.shape[1]))
+    (s, ys, xs, valid, ang) in level coordinates.  `mask` (optional (h, w)
+    tensor on the image's device, nonzero = search here) restricts
+    detection at every level."""
+    h0, w0 = int(image.shape[0]), int(image.shape[1])
+    validate_image_shape(cfg, h0, w0)
     levels = ops_image.build_pyramid(image, cfg.scale_factor, cfg.nlevels)
     scales = S.pyramid_scales(cfg.scale_factor, cfg.nlevels)
     quotas = cfg.quotas()
     dev = image.device
+    masks = (_mask_pyramid(mask, S.pyramid_shapes(h0, w0, cfg.scale_factor,
+                                                 cfg.nlevels))
+             if mask is not None else [None] * cfg.nlevels)
 
     outs = {k: [] for k in
             ("x", "y", "response", "angle", "octave", "size", "valid",
@@ -172,7 +208,8 @@ def detect_core(image: torch.Tensor, cfg: FeatureConfig):
     per_level = []
     for s in range(cfg.first_level, cfg.nlevels):
         quota = min(quotas[s], int(np.prod(levels[s].shape)))
-        ys, xs, r, ang, valid = _detect_level(levels[s], quota, cfg)
+        ys, xs, r, ang, valid = _detect_level(levels[s], quota, cfg,
+                                              masks[s])
         per_level.append((s, ys, xs, valid, ang))
         sc = float(scales[s])
         # scalePoints (cuda_efficient_features.cu:236-248): trunc(sc*x + 0.5)
@@ -233,9 +270,9 @@ def _compute_level_descriptors(blurred, ys, xs, ang, valid,
 
 
 def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
-                            with_descriptors: bool = True):
-    require_ported(cfg, image.device)
-    slots, levels, per_level = detect_core(image, cfg)
+                            with_descriptors: bool = True,
+                            mask: torch.Tensor | None = None):
+    slots, levels, per_level = detect_core(image, cfg, mask)
     if not with_descriptors:
         return slots, None
     descs = []
@@ -246,18 +283,24 @@ def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
     return slots, torch.cat(descs, dim=0)
 
 
-def detect(image: torch.Tensor, cfg: FeatureConfig) -> dict:
-    """Slot dict of one image (counterpart of `detect_jit`)."""
-    slots, _ = detect_and_compute_core(image, cfg, with_descriptors=False)
+def detect(image: torch.Tensor, cfg: FeatureConfig,
+           mask: torch.Tensor | None = None) -> dict:
+    """Slot dict of one image (counterpart of `detect_jit`, and of
+    `detect_masked_jit` with a mask)."""
+    slots, _ = detect_and_compute_core(image, cfg, with_descriptors=False,
+                                       mask=mask)
     slots.pop("x_level")
     slots.pop("y_level")
     return slots
 
 
-def detect_and_compute(image: torch.Tensor, cfg: FeatureConfig):
+def detect_and_compute(image: torch.Tensor, cfg: FeatureConfig,
+                       mask: torch.Tensor | None = None):
     """(slot dict, (slots, nbits//8) uint8 descriptors) of one image
-    (counterpart of `detect_and_compute_jit`)."""
-    slots, descs = detect_and_compute_core(image, cfg, with_descriptors=True)
+    (counterpart of `detect_and_compute_jit`, and of
+    `detect_and_compute_masked_jit` with a mask)."""
+    slots, descs = detect_and_compute_core(image, cfg, with_descriptors=True,
+                                           mask=mask)
     slots.pop("x_level")
     slots.pop("y_level")
     return slots, descs

@@ -68,6 +68,17 @@ def tiled_scene(h: int, w: int, seed: int, distinct: bool) -> np.ndarray:
     return np.block([[tiles[8 * r + c] for c in range(8)] for r in range(8)])
 
 
+def roi_mask(h: int, w: int) -> np.ndarray:
+    """(h, w) uint8 ROI mask, 255 = search here: zero in the bottom 22% of
+    rows (a forward dash camera's hood) and outside the ellipse inscribed in
+    the frame (a fisheye's image circle)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    inside = ((yy - cy) / (h / 2.0)) ** 2 + ((xx - cx) / (w / 2.0)) ** 2 <= 1.0
+    inside[int(round(0.78 * h)):] = False
+    return np.where(inside, 255, 0).astype(np.uint8)
+
+
 def load_gray(path: str | None, h: int = 1080, w: int = 1920,
               seed: int = 0) -> np.ndarray:
     """Load a grayscale u8 image, or synthesize a corner-rich scene."""

@@ -5,14 +5,19 @@
 Runs each path at 2160x3840 with 40000 features, HashSIFT-256:
   - `dac`: `EfficientFeatures.detect_and_compute_async` on the tiled scene
     of `chip_smoke.py` (one 270x480 tile repeated 8x8);
+  - `masked`: the same call with `mask=` the ROI of
+    `samples.sample_common.roi_mask` (K1 with its mask input);
+  - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
+    K9, then the flat top-k sort of every level's dense map);
   - `sequence`: one image-sequence step (detect and describe, the masked
     matcher in both directions, RANSAC with 256 iterations), alternating
     between two frames of a rigid warp of 64 different tiles.
 For each path: the wall time per call (host clock around CALLS calls that
 end in a synchronize, no profiler), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
-share, 1 - device time / wall time.  Prints the TOP kernels by device time
-and a JSON summary as the last line; `--out` also writes the summary to a
+share, 1 - device time / wall time, and the device time of the sort
+kernels (top-k selection).  Prints the TOP kernels by device time and a
+JSON summary as the last line; `--out` also writes the summary to a
 file.
 Exits non-zero without CUDA.
 """
@@ -68,7 +73,8 @@ def profile(fn) -> dict:
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
             "kernels_ms": {k[:NAME]: v for k, v in ranked[:TOP]},
-            "other_ms": sum(v for _, v in ranked[TOP:])}
+            "other_ms": sum(v for _, v in ranked[TOP:]),
+            "sort_ms": sum(v for k, v in ranked if "Sort" in k)}
 
 
 def main() -> int:
@@ -87,7 +93,10 @@ def main() -> int:
     dev = torch.device("cuda")
     ef = EfficientFeatures(nfeatures=NFEATURES,
                            descriptor_type="hash_sift_256", device="cuda")
+    ef5 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=5,
+                            descriptor_type="hash_sift_256", device="cuda")
     scene = torch.from_numpy(SC.tiled_scene(H, W, 2160, False)).to(dev)
+    roi = torch.from_numpy(SC.roi_mask(H, W)).to(dev)
     base = SC.tiled_scene(H, W, 2160, True)
     frames = [torch.from_numpy(SC.warp_image(base, 2.0 * i, 5.0 * i, 1.0))
               .to(dev) for i in range(2)]
@@ -95,6 +104,9 @@ def main() -> int:
                                     ransac_iters=256, device="cuda")
     order = itertools.cycle(frames)     # each step matches the other frame
     paths = {"dac": lambda: ef.detect_and_compute_async(scene),
+             "masked": lambda: ef.detect_and_compute_async(scene, mask=roi),
+             "small_radius": lambda: ef5.detect_and_compute_async(scene,
+                                                                  mask=roi),
              "sequence": lambda: step(next(order))}
     summary = {"card": hw, "calls": CALLS, "paths": {}}
     for name, fn in paths.items():
@@ -107,6 +119,7 @@ def main() -> int:
             print(f"  {v:9.3f} ms  {k}")
         print(f"  {res['other_ms']:9.3f} ms  the other "
               f"{res['n_kernels'] - len(res['kernels_ms'])} kernels")
+        print(f"  {res['sort_ms']:9.3f} ms  in sort kernels, all told")
     line = json.dumps(summary)
     if args.out:
         with open(args.out, "w") as f:

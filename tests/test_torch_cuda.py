@@ -6,8 +6,9 @@ jax it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances as in `tests/test_torch_kernels.py` and
-`tests/test_torch_hash_sift.py`: K1 and K2 bit-exact, K3 at most
+Tolerances as in `tests/test_torch_kernels.py`,
+`tests/test_torch_detect_config.py` and `tests/test_torch_hash_sift.py`:
+K1 (with and without a mask), K2, K7, K8 and K9 bit-exact, K3 at most
 int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 rows
 |diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
 descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 must give
@@ -34,6 +35,15 @@ def tie_image():
     img[40:44, 60:64] = 220
     img[44:48, 64:68] = 220
     return img
+
+
+def tie_mask():
+    """ROI mask of `tie_image` (255 = search) that cuts one of its two tied
+    8x8 blocks at column 66 and leaves the other tied, so selection still
+    takes the dense fallback and the fallback must apply the mask."""
+    mask = np.full((96, 160), 255, np.uint8)
+    mask[:, 66:] = 0
+    return mask
 
 
 def wrap_image():
@@ -262,3 +272,100 @@ def test_sequence_step_on_the_card_matches_the_cpu(dev):
         assert int(g[0]) == int(c[0])
         assert abs(int(g[1]) - int(c[1])) <= 2
     assert int(outs["cuda"][2][3]) / int(outs["cuda"][2][1]) > 0.6
+
+
+def _detect_images():
+    return (make_test_image(200, 280, seed=33),
+            make_test_image(141, 203, seed=8), tie_image(), wrap_image())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 5, 9])
+def test_fast_harris_nms_kernel_matches_plain(dev, radius):
+    for img in _detect_images():
+        t = torch.from_numpy(img).to(dev)
+        before = DK.fast_harris_nms.launches
+        got = DK.fast_harris_nms(t, 20, radius)
+        assert DK.fast_harris_nms.launches == before + 1
+        assert torch.equal(got, DK.fast_harris_nms_ref(t, 20, radius))
+    assert bool(torch.isfinite(got[24, 32])) == (radius == 1)   # wrap corner
+
+
+@pytest.mark.cuda
+def test_fast_harris_kernel_matches_plain(dev):
+    for img in _detect_images():
+        t = torch.from_numpy(img).to(dev)
+        before = DK.fast_harris.launches
+        got = DK.fast_harris(t, 20)
+        assert DK.fast_harris.launches == before + 1
+        assert torch.equal(got, DK.fast_harris_ref(t, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [3, 9, 15, 49, 64, 128])
+def test_radius_nms_kernel_matches_plain(dev, radius):
+    img = torch.from_numpy(make_test_image(200, 280, seed=33)).to(dev)
+    resp = DK.fast_harris(img, 20)
+    keep = torch.from_numpy(np.random.default_rng(radius).random((200, 280))
+                            < 0.5).to(dev)
+    for r in (resp, torch.where(keep, resp, TD.RESP_SENTINEL)):
+        before = DK.radius_nms.launches
+        got = DK.radius_nms(r, radius)
+        assert DK.radius_nms.launches == before + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got, DK.radius_nms_ref(r, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [10, 15, 22, 48])
+def test_masked_cells_kernel_matches_plain(dev, radius):
+    from efficient_features_tpu_torch.samples.sample_common import roi_mask
+    for img in _detect_images()[:3]:
+        h, w = img.shape
+        t = torch.from_numpy(img).to(dev)
+        rnd = np.random.default_rng(radius).random((h, w)) < 0.5
+        unmasked = DK.fast_harris_nms_cells(t, 20, radius)
+        for mask in (roi_mask(h, w) != 0, rnd, np.ones((h, w), bool)):
+            m = torch.from_numpy(mask).to(dev)
+            got = DK.fast_harris_nms_cells(t, 20, radius, m)
+            for a, b in zip(got, DK.fast_harris_nms_cells_ref(t, 20, radius,
+                                                              m)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(got, unmasked):         # all-true mask = no mask
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,masked", [(15, True), (5, True),
+                                           (5, False), (64, False)])
+def test_masked_slice_on_the_card_matches_the_cpu(dev, radius, masked):
+    from efficient_features_tpu_torch.samples import sample_common as SC
+    scene = SC.make_bench_image(720, 1280, seed=9)
+    mask = SC.roi_mask(720, 1280) if masked else None
+    slots = []
+    for d in ("cuda", "cpu"):
+        ef = EfficientFeatures(nfeatures=3000, nonmax_radius=radius,
+                               descriptor_type="bad_256", device=d)
+        kps, desc = ef.detect_and_compute_async(scene, mask=mask)
+        slots.append(({k: v.cpu() for k, v in kps._slots.items()},
+                      desc.cpu()))
+    (gk, gd), (ck, cd) = slots
+    for k in ("x", "y", "octave", "size", "response", "valid", "count"):
+        assert torch.equal(gk[k], ck[k]), k
+    assert float((gk["angle"] - ck["angle"]).abs().max()) < 1e-3
+    assert int((gd != cd).sum()) <= _budget(cd.numel())
+
+
+@pytest.mark.cuda
+def test_masked_tie_fallback_on_the_card_matches_the_cpu(dev):
+    before = TD.select_topk_cells.fallbacks
+    slots = [EfficientFeatures(nfeatures=64, nlevels=1,
+                               descriptor_type="bad_256",
+                               device=d).detect(tie_image(),
+                                                mask=tie_mask())._slots
+             for d in ("cuda", "cpu")]
+    assert TD.select_topk_cells.fallbacks == before + 2
+    assert int(slots[1]["count"]) == 3
+    for k in slots[1]:
+        if k != "angle":
+            assert torch.equal(slots[0][k].cpu(), slots[1][k]), k

@@ -6,8 +6,8 @@ y, octave, size, response, valid, count) bit-exact, because selection is
 exact integer math in both packages; angles within 1e-3 degrees (f32 atan2
 ULPs); descriptors within the reference's budgets of int(2e-5 * bytes) + 1
 (BAD) and int(1e-4 * bytes) + 1 (HashSIFT) differing bytes.  Also the API
-surface: the same ValueErrors as the JAX API, NotImplementedError for the
-paths not ported yet, and no silent CPU run when CUDA was asked for.
+surface: the same ValueErrors as the JAX API, NotImplementedError for
+`mesh=` (not ported yet), and no silent CPU run when CUDA was asked for.
 """
 import numpy as np
 import pytest
@@ -87,8 +87,9 @@ def test_detect_and_compute_matches_jax(scene, descriptor_type):
 
 
 def test_detect_small_radius_and_tiny_levels_match_jax():
-    """nonmax_radius < 10 takes the dense path on the CPU, and levels under
-    31 px get no keypoints, as in the JAX pipeline."""
+    """nonmax_radius < 10 takes the fast_harris_nms route (its plain
+    version on the CPU), and levels under 31 px get no keypoints, as in the
+    JAX pipeline."""
     img = make_test_image(120, 160, seed=3)
     cfg = dict(nfeatures=300, nonmax_radius=5, nlevels=6,
                scale_factor=1.5)
@@ -136,20 +137,21 @@ def test_image_errors_match_jax():
 
 
 def test_unported_paths_raise(scene):
-    """mask=, mesh= and nonmax_radius outside 10..48 on a GPU still raise;
-    HashSIFT (the default) and standalone compute() run."""
+    """mesh= still raises; mask= and every nonmax_radius (9 and 49 take the
+    routes that had no kernel before) run, as do HashSIFT (the default) and
+    standalone compute()."""
     tef = TEF(device="cpu")
     assert tef.get_descriptor_type() == "hash_sift_256"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tef.detect(scene, mask=np.ones_like(scene))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tef.detect_and_compute(scene, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tef.detect(scene, mask=np.ones_like(scene), mesh=object())
+    assert tef.detect(scene, mask=np.ones_like(scene)).count > 0
+    assert not hasattr(TP, "require_ported")
     for radius in (9, 49):
-        cfg = TP.FeatureConfig(nonmax_radius=radius)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TP.require_ported(cfg, torch.device("cuda"))
-        TP.require_ported(cfg, torch.device("cpu"))   # fine on the CPU
-    TP.require_ported(TP.FeatureConfig(), torch.device("cuda"))
+        kps = TEF(nonmax_radius=radius, descriptor_type="bad_256",
+                  device="cpu").detect(scene)
+        assert kps.count > 0
     kps, desc = tef.detect_and_compute(scene)
     assert kps.count > 0 and desc.shape == (kps.count, 32)
     assert tef.compute(scene, kps).shape == (kps.count, 32)

@@ -1,4 +1,4 @@
-"""The port's two samples, run in-process on the CPU on small scenes.
+"""The port's four samples, run in-process on the CPU on small scenes.
 
 The same scenes and assertions as `tests/test_samples.py`: a 240x320
 corner-rich scene replaces each synthetic frame, and `--device cpu` runs
@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from efficient_features_tpu_torch import EfficientFeatures
+from efficient_features_tpu_torch.samples import sample_benchmark as SB
 from efficient_features_tpu_torch.samples import sample_common as SC
+from efficient_features_tpu_torch.samples import \
+    sample_feature_extraction as SFE
 from efficient_features_tpu_torch.samples import \
     sample_feature_matching as SFM
 from efficient_features_tpu_torch.samples import sample_image_sequence as SIS
@@ -41,6 +44,28 @@ def _run_main(module, argv, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["x", *argv, "--device", "cpu"])
     module.main()
     return capsys.readouterr().out
+
+
+def test_sample_feature_extraction(monkeypatch, capsys):
+    out = _run_main(SFE, ["--max-keypoints", "500"], monkeypatch, capsys)
+    nk = int(re.search(r"(\d+) keypoints", out).group(1))
+    assert nk > 50
+    assert "sync" in out and "async" in out
+
+
+@pytest.mark.parametrize("btype,radius", [(0, 15), (1, 5), (1, 49), (2, 15)])
+def test_sample_benchmark(btype, radius, monkeypatch, capsys):
+    """Every benchmark type runs end to end, and detect-only at a small and
+    a large --nonmax-radius (the routes without the cells kernel)."""
+    out = _run_main(
+        SB, ["--max-keypoints", "300", "--num-iterations", "1",
+             "--benchmark-type", str(btype), "--nonmax-radius", str(radius)],
+        monkeypatch, capsys)
+    assert re.search(r"processing time: [0-9.]+\[milli sec\]", out)
+    assert f"nonmax radius   : {radius}" in out
+    # a radius-49 disc leaves few keypoints on a 240x320 scene
+    floor = 50 if radius < 49 else 5
+    assert int(re.search(r"(\d+) keypoints found", out).group(1)) > floor
 
 
 @pytest.mark.parametrize("homography", [False, True])
