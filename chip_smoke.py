@@ -9,12 +9,17 @@ and K8 dense FAST+Harris (radius 1-9, five images, bit-exact), K9 disc NMS
 (radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
 moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
 31*1.2^k and 300 px), K5 HashSIFT histogram (deterministic, zero patch ->
-zero row) and K6 best-2 Hamming search (bit-identical at 40000 x 40000, 256
+zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
+2160x3840 frame, odd sizes, an upscale, 16x20 and 8x8 destinations, noise
+and all-255), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
+within K5's tolerance of its plain version, on detected keypoints, on
+sizes 31-300 px, on the image corners, on a saturated 0/255 edge image;
+invalid slots give zero rows; deterministic) and K6 best-2 Hamming search (bit-identical at 40000 x 40000, 256
 and 512 bits, unmasked and about 20% masked on each side, on a tie-heavy
 pool with a duplicate across train tiles and n2 not a multiple of the tile,
 rows with no valid pair; and `match`, `knn2_ratio_match`,
 `knn2_ratio_match_masked` against their plain routes).  Then it drives the
-port's four main paths at 2160x3840 with 40000 features, each with every
+port's main paths at 2160x3840 with 40000 features, each with every
 launch count set to 0 just before and read just after:
   - `EfficientFeatures.detect_and_compute` with BAD-256, BAD-512,
     HashSIFT-256 and HashSIFT-512, checked against the plain path on the
@@ -35,9 +40,18 @@ launch count set to 0 just before and read just after:
     (K7), (c) radius 5 with the ROI (K8, the mask, K9), (d) radius 64 (K8,
     K9), each checked against the plain path on the card, each detect
     kernel launched once per level.
+  - the fused HashSIFT route: `detect_and_compute` with `hs_fused=True`,
+    HashSIFT-256 and -512 (7 K10 and 8 K11 launches per call, no K4 or K5
+    launch; descriptor bytes identical to the two-stage route, slots
+    bit-identical to the plain path), `HashSIFT(fused=True).compute` on
+    40000 host keypoints, and a 4-frame `detect_and_compute_batch` whose
+    frame i equals the single call on frame i.
+Every `detect` / `detect_and_compute` call builds its pyramid through K10:
+7 launches per call, checked in every path above.
 At the samples' own size (720x1280, 3000 features) configurations (a)-(d)
-are held against the port on the CPU, and the sequence path on the
-card is held against the port on the CPU: slots bit-identical, descriptors
+are held against the port on the CPU, as are the fused route and a 4-frame
+batch, and the sequence path on the card is held against the port on the
+CPU: slots bit-identical, descriptors
 within budget, matcher outputs identical on the same descriptors, RANSAC's
 homography within SAMPLE_H_TOL on the same minimal sets.
 It checks that the HashSIFT projection ignores a caller's TF32 setting, and
@@ -179,6 +193,22 @@ def wrap_image() -> np.ndarray:
     return img
 
 
+def edge_case():
+    """(image, x, y, size, angle, valid): the saturated 0/255 edge image and
+    its 24 unrotated keypoints at non-integer positions
+    (tests/test_kernels.py's saturated-edges test): gradients of +-255."""
+    img = np.zeros((160, 256), np.uint8)
+    img[:, 128:] = 255
+    img[40:80, 40:80] = 255
+    img[100:140, 160:200] = 0
+    n = 24
+    rng = np.random.default_rng(11)
+    x = (rng.uniform(34, 222, n) + 0.31).astype(np.float32)
+    y = (rng.uniform(34, 126, n) + 0.47).astype(np.float32)
+    return (img, x, y, np.full(n, 31.0, np.float32),
+            np.full(n, -1.0, np.float32), np.ones(n, bool))
+
+
 @contextlib.contextmanager
 def patched(module_attrs):
     """Temporarily set module attributes: [((module, name), value), ...]."""
@@ -225,7 +255,12 @@ def _work(name: str, args) -> tuple[float, float, float]:
       K6  2 * n1 * n2 * nbits int8 tensor-core ops: a +-1 product of the
           unpacked bits, the least the card could do it in (on the CUDA
           cores this design needs n1 * n2 * nbits / 32 popc, see
-          knn2_hamming.cu)."""
+          knn2_hamming.cu);
+      K10 source and destination pixels once and the six int32 tables; per
+          destination pixel 6 multiplies, 3 adds, the rounding add and the
+          shift (11);
+      K11 the image once, 17 B of keypoint per slot and the 128 B row; K4's
+          affine and lerp per sample plus K5's work per patch."""
     if name == "fast_harris_nms_cells":
         h, w = args[0].shape
         masked = len(args) > 3 and args[3] is not None
@@ -251,6 +286,13 @@ def _work(name: str, args) -> tuple[float, float, float]:
     if name == "hs_hist_from_patches":
         n = args[0].shape[0]
         return 1152 * n, (40.0 * 1024 + 2 * 225 * 128) * n, 0.0
+    if name == "resize_u8_kernel":
+        src, (h, w) = args
+        return src.numel() + h * w + 12 * (h + w), 11.0 * h * w, 0.0
+    if name == "hs_desc_windows":
+        img, n = args[0], args[1].shape[0]
+        return (img.numel() + 17 * n + 128 * n,
+                (12.0 * 1024 + 40.0 * 1024 + 2 * 225 * 128) * n, 0.0)
     if name == "knn2_topk2":
         q, vq, t, vt = args
         n1, n2, nb = q.shape[0], t.shape[0], q.shape[1]
@@ -315,6 +357,7 @@ def main() -> int:
         make_test_image
     from efficient_features_tpu_torch.samples import \
         sample_image_sequence as SIS
+    from efficient_features_tpu_torch.utils import semantics as S
 
     tpu = "efficient_features_tpu/ops/"
     # (module, wrapper name, plain version, CUDA source, TPU kernel bodies)
@@ -342,9 +385,17 @@ def main() -> int:
         (DK, "radius_nms", DK.radius_nms_ref, "radius_nms.cu",
          f"{tpu}pallas_kernels.py:241 (_nms_kernel, launched by radius_nms "
          f"{tpu}pallas_kernels.py:297)"),
+        (I, "resize_u8_kernel", I.resize_u8, "resize_u8.cu",
+         f"{tpu}image.py:115 (_resize_kernel, launched by resize_u8_pallas "
+         f"{tpu}image.py:173)"),
+        (WK, "hs_desc_windows", WK.hs_desc_windows_ref, "hs_desc.cu",
+         f"{tpu}window_kernels.py:1358 (_hs_fused_kernel, launched by "
+         f"_hs_desc_windows_impl {tpu}window_kernels.py:1565)"),
     ]
     names = [n for _, n, *_ in kernels]
-    detect_kernels = ["fast_harris_nms_cells", "ic_moments_windows"]
+    pyramid_kernels = ["resize_u8_kernel"]     # every detect call: 7 launches
+    detect_kernels = pyramid_kernels + ["fast_harris_nms_cells",
+                                        "ic_moments_windows"]
     desc_kernels = {"bad": ["bad_descriptors_windows"],
                     "hash_sift": ["warp_patches_windows",
                                   "hs_hist_from_patches"]}
@@ -359,7 +410,10 @@ def main() -> int:
     recorded = {}    # kernel -> its calls in the first run that launched it
     last_calls = {}  # kernel -> its calls in the latest run
 
-    def drive(label, fn, expect):
+    def drive(label, fn, expect, forbid=(), detect_calls=1):
+        """Run fn with every launch count at 0 before and read after; fail
+        if a kernel of `expect` did not launch, one of `forbid` did, or the
+        pyramid's kernel did not launch 7 times per detect call."""
         calls = {n: [] for n in names}
 
         def recording(f, name):
@@ -380,6 +434,13 @@ def main() -> int:
         missing = [n for n in expect if counts[n] < 1]
         if missing:
             fail(f"{label}: kernels not launched: {missing} ({counts})")
+        if any(counts[n] for n in forbid):
+            fail(f"{label}: kernels launched that this route must not "
+                 f"take: {[n for n in forbid if counts[n]]} ({counts})")
+        if "resize_u8_kernel" in expect and \
+                counts["resize_u8_kernel"] != 7 * detect_calls:
+            fail(f"{label}: {counts['resize_u8_kernel']} K10 launches, "
+                 f"expected 7 for each of {detect_calls} detect calls")
         for n, c in counts.items():
             totals[n] += c
             if c and n not in recorded:
@@ -390,6 +451,13 @@ def main() -> int:
 
     hw = card()
     dev = torch.device("cuda")
+    started = time.perf_counter()
+
+    def stamp(phase):
+        """Seconds since the start, so that a growing script shows where
+        its time goes."""
+        print(f"[{time.perf_counter() - started:6.1f} s] {phase}")
+
     print(hw)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
@@ -409,6 +477,7 @@ def main() -> int:
     rng = np.random.default_rng(40000)
     errs = dict.fromkeys(names, 0.0)
 
+    stamp("kernels built; K1, K7, K8, K9, K10 against plain")
     # -- K1: cells kernel vs plain, bit-exact ---------------------------------
     def check_cells(name, image, radius=15):
         got = DK.fast_harris_nms_cells(image, 20, radius)
@@ -503,6 +572,37 @@ def main() -> int:
               f"radius 3/9/15/49/64/128: {live}")
     del resp8
 
+    # -- K10: the pyramid's resize vs plain, bit-exact ------------------------
+    def check_resize(label, src, dst_hw):
+        got = I.resize_u8_kernel(src, dst_hw)
+        check_same(f"K10 {label} {tuple(src.shape)} -> {dst_hw}",
+                   "resize_u8_kernel", got, I.resize_u8(src, dst_hw))
+        return got
+
+    shapes = S.pyramid_shapes(H, W, 1.2, 8)
+    level = img
+    for lvl in range(1, 8):
+        level = check_resize(f"level {lvl}", level, shapes[lvl])
+    noise = torch.from_numpy(mask_rng.integers(0, 256, (H, W),
+                                               dtype=np.uint8)).to(dev)
+    white = torch.full((H, W), 255, dtype=torch.uint8, device=dev)
+    check_resize("noise", noise, shapes[1])
+    if not bool((check_resize("all-255", white, shapes[1]) == 255).all()):
+        fail("K10: an all-255 image did not stay all-255")
+    crop_shapes = S.pyramid_shapes(H - 1, W - 3, 1.2, 8)
+    check_resize("odd crop", crop, crop_shapes[1])
+    check_resize("odd crop of noise", noise[:H - 1, :W - 3].contiguous(),
+                 crop_shapes[2])
+    check_resize("upscale", level, shapes[4])
+    check_resize("tiny", level, (16, 20))
+    check_resize("tiny", level, (8, 8))
+    print(f"K10 {H}x{W}: bit-exact on the 7 pyramid levels {shapes[1:]}, on "
+          f"noise and all-255 (stays 255), on a {H - 1}x{W - 3} source to "
+          f"{crop_shapes[1]} and {crop_shapes[2]}, on the upscale "
+          f"{tuple(level.shape)} -> {shapes[4]} and on 16x20 and 8x8 "
+          "destinations")
+    del noise, white, level
+
     # -- K1 with its ROI mask vs plain, bit-exact -----------------------------
     roi_np = SC.roi_mask(H, W)
     roi = torch.from_numpy(roi_np).to(dev)
@@ -542,6 +642,7 @@ def main() -> int:
           f"{int(tie_kps[0]['count'])} keypoints (3 expected), slots "
           "bit-identical to the CPU port")
 
+    stamp("K2, K3, K4, K5, K11 against plain")
     # -- K2: IC moments, exact ----------------------------------------------
     ys = rng.integers(0, H, N_KP).astype(np.int32)
     xs = rng.integers(0, W, N_KP).astype(np.int32)
@@ -656,6 +757,49 @@ def main() -> int:
               f"unguarded product there differs in "
               f"{int((tf32 != want).sum())} bytes")
 
+    # -- K11: fused HashSIFT = K5 on K4's patches, bit for bit ---------------
+    def check_fused(label, image, kp):
+        rows = WK.hs_desc_windows(image, *kp, 1.0)
+        staged = WK.hs_hist_from_patches(
+            WK.warp_patches_windows(image, *kp, 1.0))
+        torch.cuda.synchronize()
+        if not torch.equal(rows, staged):
+            bad = (rows != staged).nonzero()[:5].tolist()
+            fail(f"K11 {label}: rows differ from K5(K4(.)), first differing "
+                 f"(row, entry) {bad}")
+        ref = WK.hs_desc_windows_ref(image, *kp, 1.0)
+        dmax, dshare = u8_diff(rows, ref)
+        if dmax > 1 or dshare >= HIST_SHARE:
+            fail(f"K11 {label}: rows differ from plain: max {dmax}, share "
+                 f"{dshare}")
+        if int(rows[~kp[4]].to(torch.int32).sum()) != 0:
+            fail(f"K11 {label}: an invalid slot gave a nonzero row")
+        if not torch.equal(rows, WK.hs_desc_windows(image, *kp, 1.0)):
+            fail(f"K11 {label}: two runs differ")
+        errs["hs_desc_windows"] = max(errs["hs_desc_windows"],
+                                      max_abs_err(rows, ref))
+        print(f"K11 {label}: {rows.shape[0]} slots "
+              f"({int((~kp[4]).sum())} invalid, zero rows): bytes identical "
+              f"to K5(K4(.)); against plain max |diff| {dmax}, differing "
+              f"share {dshare:.3e}; two runs bit-identical")
+
+    det = P.detect(img, P.FeatureConfig(nfeatures=NFEATURES))
+    check_fused("detected keypoints at size 31 on the blurred level 0",
+                blurred, (det["x"], det["y"],
+                          torch.full_like(det["x"], 31.0), det["angle"],
+                          det["valid"]))
+    fsz = np.random.default_rng(11).uniform(31.0, 300.0, N_KP).astype(
+        np.float32)
+    fsz[:8] = [31.0, 300.0, 31.0, 300.0, 64.0, 111.0, 31.0, 192.5]
+    check_fused("host keypoints of sizes 31-300 px (image corners, angle -1 "
+                "included)", img,
+                [torch.from_numpy(a).to(dev) for a in (kx, ky, fsz, ka,
+                                                       kvalid)])
+    edge = [torch.from_numpy(a).to(dev) for a in edge_case()]
+    check_fused("saturated 0/255 edge image", edge[0], edge[1:])
+    del det
+
+    stamp("K6 against plain")
     # -- K6: best-2 Hamming search, bit-identical -----------------------------
     def check_knn2(label, q, vq, t, vt):
         got = TM.knn2_topk2(q, vq, t, vt)
@@ -719,6 +863,7 @@ def main() -> int:
               f"{N_KP} x {N_KP - 1} (duplicate across tiles, n2 not a "
               "multiple of 256) and with no valid train row")
 
+    stamp("main path 1: detect_and_compute")
     # -- main path 1: detect_and_compute through the kernels ----------------
     selection = ("x", "y", "octave", "size", "response", "valid", "count")
     detected = None
@@ -779,6 +924,7 @@ def main() -> int:
               f"{plain_slice:.3f} ms/call plain; host syncs per call "
               f"{syncs} [{hw}]")
 
+    stamp("main path 2: compute()")
     # -- main path 2: standalone compute() through the kernels --------------
     hk = np.stack([kx, ky, rng.uniform(31.0, 300.0, N_KP), ka],
                   axis=1).astype(np.float32)
@@ -812,6 +958,7 @@ def main() -> int:
               f"on {H}x{W}: {comp_ms:.3f} ms/call through the kernels, "
               f"{plain_comp:.3f} ms/call plain [{hw}]")
 
+    stamp("main paths 3 and 4: sequence, two-image")
     # -- main path 3: the image-sequence step, through the kernels ----------
     match_kernels = (detect_kernels + desc_kernels["hash_sift"]
                      + ["knn2_topk2"])
@@ -840,7 +987,8 @@ def main() -> int:
         ef._cfg, (H, W), homography=True, ransac_iters=256,
         ransac_thresh=RANSAC_THRESH, device="cuda")
     seq, counts = drive("image sequence",
-                        lambda: [step(f) for f in frames_dev], match_kernels)
+                        lambda: [step(f) for f in frames_dev], match_kernels,
+                        detect_calls=SEQ_FRAMES)
     for i in range(1, SEQ_FRAMES):
         count, n_match, Hm, n_inl = seq[i]
         got = check_geometry(f"sequence frame {i}", int(n_match), int(n_inl),
@@ -865,13 +1013,14 @@ def main() -> int:
             src, dst, valid, iters=512, thresh=RANSAC_THRESH, device="cuda")
 
     (valid, Hm, inl, n_inl), counts = drive("two-image matching", two_image,
-                                            match_kernels)
+                                            match_kernels, detect_calls=2)
     got = check_geometry("two-image", int(valid.sum()), int(n_inl),
                          Hm.cpu().numpy(), warps[1] @ np.linalg.inv(warps[0]))
     if bool((inl & ~valid).any()):
         fail("two-image: RANSAC kept a match the cross check dropped")
     print(f"two-image path frames 0 -> 1: launches {counts}; {got}")
 
+    stamp("main path 5: detector configurations")
     # -- main path 5: the detector's configurations, ROI mask and radius ----
     # (tag, nonmax_radius, with the ROI, the detect kernels of its route)
     configs = [("a", 15, True, ["fast_harris_nms_cells"]),
@@ -891,7 +1040,8 @@ def main() -> int:
             (kps, desc), counts = drive(
                 label, lambda: ef.detect_and_compute_async(scene,
                                                            mask=m_host),
-                ["ic_moments_windows"] + route + desc_kernels[kind])
+                pyramid_kernels + ["ic_moments_windows"] + route
+                + desc_kernels[kind])
             if any(counts[k] != ef.get_n_levels() for k in route):
                 fail(f"{label}: {counts} launches, expected one per level "
                      "of each detect kernel")
@@ -935,6 +1085,119 @@ def main() -> int:
                   f"bytes differ (budget {budget}); {ms:.3f} ms/call, host "
                   f"syncs per call {syncs} [{hw}]")
 
+    stamp("main path 6: fused HashSIFT, batch")
+    # -- main path 6: the fused HashSIFT route and the batch entry point ----
+    two_stage = desc_kernels["hash_sift"]
+    fused_kernels = detect_kernels + ["hs_desc_windows"]
+
+    def differing_slots(a, b, keys):
+        return [k for k in keys if not torch.equal(a[k], b[k])]
+
+    for dtype in ("hash_sift_256", "hash_sift_512"):
+        staged = EfficientFeatures(nfeatures=NFEATURES, descriptor_type=dtype,
+                                   device="cuda")
+        fused = EfficientFeatures(nfeatures=NFEATURES, descriptor_type=dtype,
+                                  device="cuda", hs_fused=True)
+        (kps, desc), counts = drive(
+            f"fused detect_and_compute {dtype}",
+            lambda: fused.detect_and_compute_async(scene), fused_kernels,
+            forbid=two_stage)
+        if counts["hs_desc_windows"] != fused.get_n_levels():
+            fail(f"fused {dtype}: {counts} launches, expected 8 of K11")
+        slots = kps._slots
+        n = kps.count
+        kps_s, desc_s = staged.detect_and_compute_async(scene)
+        differ = differing_slots(slots, kps_s._slots, slots)
+        if differ or not torch.equal(desc, desc_s):
+            bad = (desc != desc_s).nonzero()[:1].tolist()
+            fail(f"fused {dtype}: differs from the two-stage route: slots "
+                 f"{differ}, first differing descriptor (slot, byte) {bad}")
+        with plain_kernels():
+            kps_p, desc_p = fused.detect_and_compute_async(scene)
+        differ = differing_slots(slots, kps_p._slots, selection + ("angle",))
+        ndiff = int((desc != desc_p).sum())
+        budget = byte_budget("hash_sift", desc.numel())
+        if differ or ndiff > budget or not 0 < n <= NFEATURES:
+            fail(f"fused {dtype}: {n} keypoints; slots {differ} differ from "
+                 f"the plain path, {ndiff} descriptor bytes (budget "
+                 f"{budget})")
+        print(f"fused slice {dtype}: {n} keypoints; launches {counts}, no "
+              f"K4 or K5 launch; slots and descriptor bytes identical to the "
+              f"two-stage route; slots bit-identical to the plain path, "
+              f"{ndiff} descriptor bytes differ (budget {budget})")
+
+        nbits = int(dtype.rsplit("_", 1)[1])
+        got, counts = drive(
+            f"fused compute HashSIFT-{nbits}",
+            lambda: HashSIFT(1.0, nbits, device="cuda",
+                             fused=True).compute_async(img, hk),
+            ["hs_desc_windows"], forbid=two_stage)
+        want = HashSIFT(1.0, nbits, device="cuda").compute_async(img, hk)
+        with plain_kernels():
+            plain = HashSIFT(1.0, nbits, device="cuda",
+                             fused=True).compute_async(img, hk)
+        ndiff = int((got != plain).sum())
+        budget = byte_budget("hash_sift", plain.numel())
+        if not torch.equal(got, want) or ndiff > budget:
+            fail(f"fused compute HashSIFT-{nbits}: bytes differ from the "
+                 f"two-stage route, or {ndiff} from the plain path (budget "
+                 f"{budget})")
+        print(f"fused compute HashSIFT-{nbits} on {N_KP} host keypoints: "
+              f"launches {counts}; bytes identical to the two-stage route, "
+              f"{ndiff} differ from the plain path (budget {budget})")
+
+    ef_hs = EfficientFeatures(nfeatures=NFEATURES,
+                              descriptor_type="hash_sift_256", device="cuda")
+    ef_fused = EfficientFeatures(nfeatures=NFEATURES,
+                                 descriptor_type="hash_sift_256",
+                                 device="cuda", hs_fused=True)
+    batch = torch.stack([img] + frames_dev)
+    nb = batch.shape[0]
+    (bslots, bdesc), counts = drive(
+        "detect_and_compute_batch",
+        lambda: ef_hs.detect_and_compute_batch(batch),
+        detect_kernels + two_stage, detect_calls=nb)
+    for i in range(nb):
+        k1, d1 = ef_hs.detect_and_compute_async(batch[i])
+        differ = [k for k, v in k1._slots.items()
+                  if not torch.equal(bslots[k][i], v)]
+        if differ or not torch.equal(bdesc[i], d1):
+            fail(f"batch frame {i}: slots {differ} or descriptors differ "
+                 "from the single call")
+    host = ef_hs.detect_and_compute_batch(batch, as_host=True)
+    if [k.count for k, _ in host] != bslots["count"].tolist() or any(
+            d.shape != (k.count, 32) for k, d in host):
+        fail("batch as_host: counts or descriptor shapes differ")
+    print(f"batch of {nb} frames {H}x{W}: launches {counts}; every frame "
+          f"equals its single call; keypoints {bslots['count'].tolist()}")
+
+    # times: two-stage, fused, fused, two-stage within this one run
+    runs = [("two-stage", ef_hs), ("fused", ef_fused), ("fused", ef_fused),
+            ("two-stage", ef_hs)]
+    for what, feat in runs:
+        ms = time_ms(lambda: feat.detect_and_compute_async(img))
+        syncs = host_syncs(lambda: feat.detect_and_compute_async(img))
+        print(f"time slice hash_sift_256 {what} {H}x{W} nfeatures "
+              f"{NFEATURES}: {ms:.3f} ms/call, host syncs per call {syncs} "
+              f"[{hw}]")
+    pyr_ms = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
+    pyr_syncs = host_syncs(lambda: I.build_pyramid(img, 1.2, 8))
+    with plain_kernels():
+        pyr_plain = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
+        pyr_plain_syncs = host_syncs(lambda: I.build_pyramid(img, 1.2, 8))
+    print(f"time pyramid {H}x{W}, 8 levels: {pyr_ms:.3f} ms/call through "
+          f"K10 ({pyr_syncs} host syncs), {pyr_plain:.3f} ms/call through "
+          f"the plain resize ({pyr_plain_syncs} host syncs) [{hw}]")
+    batch_ms = time_ms(lambda: ef_hs.detect_and_compute_batch(batch), iters=10)
+    single_ms = time_ms(lambda: ef_hs.detect_and_compute_async(batch[1]))
+    batch_syncs = host_syncs(lambda: ef_hs.detect_and_compute_batch(batch))
+    print(f"time batch of {nb} frames: {batch_ms:.3f} ms/call, "
+          f"{batch_ms / nb:.3f} ms/frame, against {single_ms:.3f} ms for a "
+          f"single call on one of them; host syncs per batch call "
+          f"{batch_syncs} [{hw}]")
+    del batch, bslots, bdesc
+
+    stamp("720p against the CPU port")
     # -- the sequence path on the card vs the port on the CPU, 720x1280 ------
     sample_frames = list(SIS.frame_iter(None, SEQ_FRAMES))
     for dtype in ("bad_256", "hash_sift_256"):
@@ -1042,6 +1305,31 @@ def main() -> int:
                   f"CPU port, angles within {dang:.2e} deg, {ndiff} "
                   f"descriptor bytes differ (budget {budget})")
 
+    # -- the fused route and a batch on the card vs the port on the CPU, 720p
+    sample_batch = np.stack(sample_frames + [sample_scene])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        feat = EfficientFeatures(nfeatures=SAMPLE_NFEATURES,
+                                 descriptor_type="hash_sift_256", device=d,
+                                 hs_fused=True)
+        bs, bd = feat.detect_and_compute_batch(sample_batch)
+        runs[d] = ({k: v.cpu() for k, v in bs.items()}, bd.cpu())
+    (sg, dg), (sc, dc) = runs["cuda"], runs["cpu"]
+    differ = [k for k in selection if not torch.equal(sg[k], sc[k])]
+    dang = (sg["angle"] - sc["angle"]).abs()
+    dang = float(torch.minimum(dang, 360 - dang).max())
+    ndiff = [int((dg[i] != dc[i]).sum()) for i in range(len(sample_batch))]
+    budget = byte_budget("hash_sift", dc[0].numel())
+    if differ or max(ndiff) > budget or dang >= ANGLE_TOL:
+        fail(f"720p fused batch: slots {differ} differ from the CPU port, "
+             f"descriptor bytes {ndiff} (budget {budget} a frame), angles "
+             f"{dang}")
+    print(f"720p fused batch of {len(sample_batch)} frames, hash_sift_256: "
+          f"keypoints {sc['count'].tolist()}, slots bit-identical to the CPU "
+          f"port, angles within {dang:.2e} deg, descriptor bytes differing "
+          f"per frame {ndiff} (budget {budget})")
+
+    stamp("RANSAC and kernel times")
     # -- RANSAC alone at 40000 slots ------------------------------------------
     slots1, desc1 = P.detect_and_compute_core(frames_dev[1], ef._cfg)
     slots2, desc2 = P.detect_and_compute_core(frames_dev[2], ef._cfg)
@@ -1115,6 +1403,24 @@ def main() -> int:
           f"(not the same function) on the same {len(pm1)} input pairs: "
           f"{library['knn2_topk2']:.3f} ms [{hw}]")
     del gemm_out, pm1
+    # F.interpolate on a float copy of each level (not the same function:
+    # float weights and no fixed-point rounding), the yardstick for K10
+    floats = [(a[0].float()[None, None], a[1])
+              for a, _ in recorded["resize_u8_kernel"]]
+
+    def interpolates():
+        for src, dst_hw in floats:
+            torch.nn.functional.interpolate(src, size=dst_hw, mode="bilinear",
+                                            align_corners=False)
+
+    library["resize_u8_kernel"] = time_ms(interpolates)
+    library_call["resize_u8_kernel"] = (
+        "torch.nn.functional.interpolate(bilinear) on a float32 copy of each "
+        "level: float weights, no 11-bit fixed point, not the same function")
+    print(f"time resize_u8_kernel yardstick: F.interpolate on float32 "
+          f"copies of the same {len(floats)} levels (not the same "
+          f"function): {library['resize_u8_kernel']:.3f} ms [{hw}]")
+    del floats
     for nbytes in (32, 64):
         d = torch.from_numpy(rng.integers(0, 256, (N_KP, nbytes),
                                           dtype=np.uint8)).to(dev)
@@ -1128,6 +1434,7 @@ def main() -> int:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]} for the replayed launches")
 
+    stamp("done")
     print(f"main-path launches (all paths, all runs): {totals}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

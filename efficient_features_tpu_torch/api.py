@@ -161,6 +161,7 @@ class _DescriptorBase:
     _scale: float
     _nbits: int
     _device: torch.device
+    _fused = False      # HashSIFT only: K11 instead of K4 + K5
 
     def compute(self, image, keypoints) -> np.ndarray:
         """Host (N, bytes) uint8 descriptors; `KeyPoints` rows are compacted
@@ -187,7 +188,7 @@ class _DescriptorBase:
                                dim=1).to(self._device, torch.float32)
             valid = s["valid"].to(self._device)
             return P.compute(img, xysa, valid, self._nbits, self._kind,
-                             self._scale)
+                             self._scale, self._fused)
         if isinstance(keypoints, torch.Tensor):
             if keypoints.dim() != 2 or keypoints.shape[1] != 4:
                 raise ValueError(
@@ -202,7 +203,7 @@ class _DescriptorBase:
                                device=self._device)
         valid = torch.ones(n, dtype=torch.bool, device=self._device)
         return P.compute(img, xysa, valid, self._nbits, self._kind,
-                         self._scale)
+                         self._scale, self._fused)
 
     def descriptor_size(self) -> int:
         return self._nbits // 8
@@ -243,39 +244,49 @@ class HashSIFT(_DescriptorBase):
     cropping_scale: patch diameter = cropping_scale * kp.size.
     sigma: accepted for API parity and has no effect, as in the JAX package
     and the GPU reference (whose Gaussian pre-blur call is commented out,
-    cuda_hash_sift.cu:392)."""
+    cuda_hash_sift.cu:392).
+    fused: run the warp and the histogram as one kernel (K11) instead of
+    two (K4, K5); the descriptor bytes are the same."""
 
     SIZE_512_BITS = 512
     SIZE_256_BITS = 256
     _kind = "hash_sift"
 
     def __init__(self, cropping_scale: float = 1.0, nbits: int = 256,
-                 sigma: float = 0.0, device="cuda"):
+                 sigma: float = 0.0, device="cuda", fused: bool = False):
         if nbits not in (256, 512):
             raise ValueError("HashSIFT supports 256 or 512 bits")
         self._scale = float(cropping_scale)
         self._nbits = nbits
         self._sigma = float(sigma)
         self._device = resolve_device(device)
+        self._fused = bool(fused)
 
     @staticmethod
     def create(cropping_scale: float = 1.0, nbits: int = 256,
-               sigma: float = 0.0, device="cuda") -> "HashSIFT":
-        return HashSIFT(cropping_scale, nbits, sigma, device)
+               sigma: float = 0.0, device="cuda",
+               fused: bool = False) -> "HashSIFT":
+        return HashSIFT(cropping_scale, nbits, sigma, device, fused)
 
 
 class EfficientFeatures:
     """Multi-scale FAST+Harris detector with BAD/HashSIFT descriptors
-    (cuda_efficient_features.h:28-98)."""
+    (cuda_efficient_features.h:28-98).
+
+    hs_fused: HashSIFT through the fused kernel (K11) instead of the warp
+    and histogram kernels (K4, K5): the same descriptor bytes, one launch
+    per level less.  Off by default, as in the JAX package."""
 
     def __init__(self, nfeatures: int = 5000, scale_factor: float = 1.2,
                  nlevels: int = 8, first_level: int = 0,
                  fast_threshold: int = 20, nonmax_radius: int = 15,
-                 descriptor_type: str = "hash_sift_256", device="cuda"):
+                 descriptor_type: str = "hash_sift_256", device="cuda",
+                 hs_fused: bool = False):
         self._cfg = P.FeatureConfig(
             nfeatures=nfeatures, scale_factor=scale_factor, nlevels=nlevels,
             first_level=first_level, fast_threshold=fast_threshold,
-            nonmax_radius=nonmax_radius, descriptor_type=descriptor_type)
+            nonmax_radius=nonmax_radius, descriptor_type=descriptor_type,
+            hs_fused=bool(hs_fused))
         self._device = resolve_device(device)
 
     create = staticmethod(lambda *a, **kw: EfficientFeatures(*a, **kw))
@@ -311,8 +322,10 @@ class EfficientFeatures:
 
     def _describer(self) -> _DescriptorBase:
         kind, bits = self._cfg.descriptor_type.rsplit("_", 1)
-        cls = BAD if kind == "bad" else HashSIFT
-        return cls(1.0, int(bits), device=self._device)
+        if kind == "bad":
+            return BAD(1.0, int(bits), device=self._device)
+        return HashSIFT(1.0, int(bits), device=self._device,
+                        fused=self._cfg.hs_fused)
 
     def detect_and_compute(self, image, mask=None, mesh=None):
         """(KeyPoints, (count, bytes) uint8 numpy descriptors of the valid
@@ -331,6 +344,35 @@ class EfficientFeatures:
     def convert(self, keypoints: KeyPoints):
         """KeyPoints -> list of cv2.KeyPoint (reference `convert`)."""
         return keypoints.cv_keypoints()
+
+    def detect_and_compute_batch(self, images, mesh=None, as_host=False):
+        """Batched detect+compute on the detector's device.  images:
+        (B, H, W) uint8, an array or a tensor.  Returns (slot dict with a
+        leading batch axis, (B, capacity, bytes) uint8 descriptors) on the
+        device; the frames run one after the other
+        (parallel/sharding.detect_and_compute_batch), so frame i equals a
+        single call on images[i].
+
+        as_host=True instead fetches everything and returns a list of
+        (KeyPoints, descriptors) per image, descriptor rows compacted to the
+        valid keypoints, as `detect_and_compute` gives them."""
+        from .parallel import sharding as SH
+        if mesh is not None:
+            raise _not_ported("mesh=", "parallel/sharding.py")
+        imgs = images if isinstance(images, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(images))
+        if imgs.dim() != 3 or imgs.dtype != torch.uint8:
+            raise ValueError("images must be (B, H, W) uint8")
+        P.validate_image_shape(self._cfg, *imgs.shape[1:])
+        slots, desc = SH.detect_and_compute_batch(
+            imgs.to(self._device).contiguous(), self._cfg)
+        if not as_host:
+            return slots, desc
+        host = {k: v.cpu() for k, v in slots.items()}
+        desc = desc.cpu().numpy()
+        return [(KeyPoints({k: v[i] for k, v in host.items()}),
+                 desc[i][host["valid"][i].numpy()])
+                for i in range(imgs.shape[0])]
 
     # -- descriptor metadata -------------------------------------------------
 

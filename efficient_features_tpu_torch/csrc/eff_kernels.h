@@ -4,8 +4,8 @@
 // void*), does not synchronise, allocates nothing, and returns
 // cudaGetLastError() right after the launch (0 on success).  Outputs and
 // inputs are device pointers to contiguous row-major tensors that the Python
-// wrappers (ops/detect_kernels.py, ops/window_kernels.py, ops/matcher.py)
-// allocate and check.
+// wrappers (ops/detect_kernels.py, ops/window_kernels.py, ops/matcher.py,
+// ops/image.py) allocate and check.
 #pragma once
 
 #include <stdint.h>
@@ -90,6 +90,25 @@ int eff_fast_harris(const uint8_t* img, int h, int w, int threshold,
 // center >= every response in the open disc.
 int eff_radius_nms(const float* resp, int h, int w, int radius,
                    const int32_t* disc_wdx, uint8_t* out, void* stream);
+
+// K10: bilinear u8 resize, 11-bit fixed point.  src: (sh, sw) uint8;
+// y0, y1, wy1: (h,) and x0, x1, wx1: (w,) int32 DEVICE tables, the source
+// indices and the weight of the second one (0..2048) per destination row
+// and column (semantics.resize_axis_coeffs).  dst: (h, w) uint8, 4-byte
+// aligned; h * w must fit int32.
+int eff_resize_u8(const uint8_t* src, int sh, int sw, const int32_t* y0,
+                  const int32_t* y1, const int32_t* wy1, const int32_t* x0,
+                  const int32_t* x1, const int32_t* wx1, uint8_t* dst, int h,
+                  int w, void* stream);
+
+// K11: fused HashSIFT, K5 applied to K4's patch on chip.  Inputs as K4,
+// wcore and ori_scale as K5.  out: (n, 128) uint8, orientation-major;
+// invalid slots get zero rows.  Rows equal eff_hs_hist(eff_warp_patches(.))
+// byte for byte.
+int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
+                const float* ky, const float* cos_s, const float* sin_s,
+                const uint8_t* valid, int n, const float* wcore,
+                float ori_scale, uint8_t* out, void* stream);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

@@ -1,11 +1,17 @@
 """Image ops: fixed-point resize, separable Gaussian, integral image.
 
-Port of `efficient_features_tpu/ops/image.py` (its XLA path).  Every op is
-int32 integer arithmetic on the input's device, so pyramid levels, blurred
-levels and integrals are bit-identical to the JAX package by construction:
+Port of `efficient_features_tpu/ops/image.py`.  Every op is int32 integer
+arithmetic on the input's device, so pyramid levels, blurred levels and
+integrals are bit-identical to the JAX package by construction:
   - pyramid resize: cv::cuda::resize INTER_LINEAR chain, 11-bit fixed point
   - 7x7 sigma=2 Gaussian, BORDER_REFLECT_101, 16-bit fixed point
   - integral image, int32 with wrapping overflow
+The resize of a CUDA tensor is the kernel K10 (csrc/resize_u8.cu, wrapper
+`resize_u8_kernel`, the counterpart of the TPU's `resize_u8_pallas`);
+`resize_u8` is its plain version and what a CPU tensor takes.
+`resize_u8_fast` picks by the tensor's device, and `build_pyramid` calls it.
+The JAX package's `pallas_resize` switch has no counterpart: the two give
+the same bytes, so the card always takes the kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +20,9 @@ import functools
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils import semantics as S
+from .detect_kernels import require_cuda, stream_of
 
 # The index and weight tables below depend only on shapes.  They are cached
 # per (shape, device) because each copy of a host array to a GPU waits for
@@ -29,6 +37,15 @@ def _resize_tables(dst_n: int, src_n: int, device: torch.device):
     return (torch.from_numpy(i0.astype(np.int64)).to(device),
             torch.from_numpy(i1.astype(np.int64)).to(device),
             torch.from_numpy(w1).to(device))
+
+
+@functools.lru_cache(maxsize=128)
+def _resize_tables_i32(dst_n: int, src_n: int,
+                       device: torch.device) -> torch.Tensor:
+    """(3, dst_n) int32 rows i0, i1, w1 of one resize axis, K10's tables."""
+    return torch.from_numpy(np.stack(
+        [a.astype(np.int32) for a in S.resize_axis_coeffs(dst_n, src_n)])
+    ).to(device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -54,14 +71,57 @@ def resize_u8(src: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
+def resize_u8_kernel(src: torch.Tensor,
+                     dst_hw: tuple[int, int]) -> torch.Tensor:
+    """K10: `resize_u8` of a contiguous (H, W) uint8 CUDA tensor, bit for
+    bit, in one kernel launch.  The index and weight tables stay the host's
+    (`semantics.resize_axis_coeffs`, float64 math), cached on the device per
+    shape."""
+    require_cuda(src, torch.uint8, "src")
+    if src.dim() != 2:
+        raise ValueError(f"src must be 2-D, got shape {tuple(src.shape)}")
+    h, w = int(dst_hw[0]), int(dst_hw[1])
+    sh, sw = src.shape
+    if min(h, w, sh, sw) < 1:
+        raise ValueError(f"cannot resize {sh}x{sw} to {h}x{w}")
+    ty = _resize_tables_i32(h, sh, src.device)
+    tx = _resize_tables_i32(w, sw, src.device)
+    out = torch.empty((h, w), dtype=torch.uint8, device=src.device)
+    if out.data_ptr() % 4:
+        raise ValueError("the output must be 4-byte aligned (the kernel "
+                         "stores 32-bit words)")
+    lib = _build.library()
+    with torch.cuda.device(src.device):
+        rc = lib.eff_resize_u8(src.data_ptr(), sh, sw,
+                               *(t.data_ptr() for t in ty.unbind(0)),
+                               *(t.data_ptr() for t in tx.unbind(0)),
+                               out.data_ptr(), h, w, stream_of(src))
+        _build.check(rc, "resize_u8_kernel")
+        resize_u8_kernel.launches += 1
+    return out
+
+
+resize_u8_kernel.launches = 0
+
+
+def resize_u8_fast(src: torch.Tensor,
+                   dst_hw: tuple[int, int]) -> torch.Tensor:
+    """`resize_u8`: through K10 for a CUDA tensor, the plain version for a
+    CPU tensor.  The same bytes either way."""
+    if src.device.type == "cpu":
+        return resize_u8(src, dst_hw)
+    return resize_u8_kernel(src, dst_hw)
+
+
 def build_pyramid(image: torch.Tensor, scale_factor: float,
                   nlevels: int) -> list[torch.Tensor]:
-    """Iterated resize chain; level s from level s-1."""
+    """Iterated resize chain; level s from level s-1.  Every level is a
+    contiguous uint8 tensor."""
     shapes = S.pyramid_shapes(image.shape[0], image.shape[1], scale_factor,
                               nlevels)
     levels = [image]
     for s in range(1, nlevels):
-        levels.append(resize_u8(levels[-1], shapes[s]))
+        levels.append(resize_u8_fast(levels[-1], shapes[s]))
     return levels
 
 

@@ -1,5 +1,6 @@
 """Per-keypoint kernels: IC moments (K2), BAD descriptors (K3), the
-HashSIFT patch warp (K4) and the HashSIFT histogram (K5).
+HashSIFT patch warp (K4), the HashSIFT histogram (K5) and the fused HashSIFT
+kernel (K11: K5 applied to K4's patch in one launch).
 
 Counterpart of `efficient_features_tpu/ops/window_kernels.py`.  The TPU needs
 aligned window DMAs, keypoint sorting and MXU forms to read scattered pixels;
@@ -196,3 +197,44 @@ def hs_hist_from_patches(patches: torch.Tensor) -> torch.Tensor:
 
 
 hs_hist_from_patches.launches = 0
+
+
+def hs_desc_windows_ref(image, x, y, size, angle, valid,
+                        scale: float = 1.0) -> torch.Tensor:
+    """Plain version of K11: the plain histogram of the plain warp."""
+    return hs_hist_from_patches_ref(
+        warp_patches_windows_ref(image, x, y, size, angle, valid, scale))
+
+
+def hs_desc_windows(image, x, y, size, angle, valid,
+                    scale: float = 1.0) -> torch.Tensor:
+    """(N, 128) uint8 quantised SIFT rows, orientation-major, of keypoints
+    (x, y, size, angle) on a uint8 image: `hs_hist_from_patches` of
+    `warp_patches_windows` in one kernel, the patch never leaving the chip.
+    On a card the rows equal that two-kernel route byte for byte (one copy
+    of the device code, csrc/hs_common.cuh).  Invalid slots give zero rows;
+    keypoints of any size."""
+    if image.device.type == "cpu":
+        return hs_desc_windows_ref(image, x, y, size, angle, valid, scale)
+    require_cuda(image, torch.uint8, "image")
+    h, w = image.shape
+    n = x.shape[0]
+    out = torch.empty((n, 128), dtype=torch.uint8, device=image.device)
+    if n == 0:
+        return out
+    args = _affine_args(x, y, size, angle, scale)[:4]
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    require_cuda(valid_u8, torch.uint8, "valid")
+    wcore = HS.spatial_weight_core_on(str(image.device))
+    lib = _build.library()
+    with torch.cuda.device(image.device):
+        rc = lib.eff_hs_desc(image.data_ptr(), h, w,
+                             *(t.data_ptr() for t in args),
+                             valid_u8.data_ptr(), n, wcore.data_ptr(),
+                             HS.ORI_SCALE, out.data_ptr(), stream_of(image))
+        _build.check(rc, "hs_desc_windows")
+        hs_desc_windows.launches += 1
+    return out
+
+
+hs_desc_windows.launches = 0

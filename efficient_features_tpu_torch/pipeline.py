@@ -38,6 +38,9 @@ class FeatureConfig:
     fast_threshold: int = 20
     nonmax_radius: int = 15
     descriptor_type: str = "hash_sift_256"
+    # HashSIFT through the fused kernel K11 instead of K4 + K5 (the JAX
+    # package's EFF_TPU_FUSED_HS route).  The descriptor bytes are the same.
+    hs_fused: bool = False
 
     def __post_init__(self):
         """Eager parameter validation, with the JAX package's messages."""
@@ -243,17 +246,23 @@ def _hs_from_fused(desc_u8, valid, nbits: int) -> torch.Tensor:
 
 
 def _compute_descriptors(image, x, y, size, ang, valid, kind: str,
-                         nbits: int, scale: float) -> torch.Tensor:
-    """Descriptor dispatch: BAD through K3; HashSIFT through the warp (K4),
-    the histogram (K5) and the projection.  Every keypoint size takes the
-    same kernels."""
+                         nbits: int, scale: float,
+                         hs_fused: bool = False) -> torch.Tensor:
+    """Descriptor dispatch: BAD through K3; HashSIFT through the warp (K4)
+    and the histogram (K5), or with `hs_fused` through the fused kernel
+    (K11), then the projection.  Every keypoint size takes the same
+    kernels."""
     if kind == "bad":
         return WK.bad_descriptors_windows(image, x, y, size, ang, valid,
                                           nbits, scale)
     if kind != "hash_sift":
         raise ValueError(f"kind must be 'bad' or 'hash_sift', got {kind!r}")
-    patches = WK.warp_patches_windows(image, x, y, size, ang, valid, scale)
-    return _hs_from_fused(WK.hs_hist_from_patches(patches), valid, nbits)
+    if hs_fused:
+        rows = WK.hs_desc_windows(image, x, y, size, ang, valid, scale)
+    else:
+        rows = WK.hs_hist_from_patches(
+            WK.warp_patches_windows(image, x, y, size, ang, valid, scale))
+    return _hs_from_fused(rows, valid, nbits)
 
 
 def _compute_level_descriptors(blurred, ys, xs, ang, valid,
@@ -266,7 +275,7 @@ def _compute_level_descriptors(blurred, ys, xs, ang, valid,
                       device=x.device)
     kind, bits = cfg.descriptor_type.rsplit("_", 1)
     return _compute_descriptors(blurred, x, y, size, ang, valid, kind,
-                                int(bits), 1.0)
+                                int(bits), 1.0, cfg.hs_fused)
 
 
 def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
@@ -307,12 +316,14 @@ def detect_and_compute(image: torch.Tensor, cfg: FeatureConfig,
 
 
 def compute(image: torch.Tensor, xysa: torch.Tensor, valid: torch.Tensor,
-            nbits: int, kind: str, scale: float) -> torch.Tensor:
+            nbits: int, kind: str, scale: float,
+            hs_fused: bool = False) -> torch.Tensor:
     """(N, nbits//8) uint8 descriptors of user keypoints, (N, 4) float32
     rows [x, y, size, angle], on the raw image (no blur), as the
     reference's standalone BAD / HashSIFT compute.  Counterpart of
     `compute_jit` and `compute_bucketed_jit`: one call covers every
-    keypoint size.  Invalid slots give zero rows."""
+    keypoint size.  Invalid slots give zero rows.  `hs_fused`: HashSIFT
+    through K11 instead of K4 + K5."""
     x, y, size, ang = xysa.to(torch.float32).unbind(1)
     return _compute_descriptors(image, x, y, size, ang, valid, kind, nbits,
-                                scale)
+                                scale, hs_fused)

@@ -4,4 +4,5 @@
     python -m efficient_features_tpu_torch.samples.sample_feature_matching
     python -m efficient_features_tpu_torch.samples.sample_image_sequence
     python -m efficient_features_tpu_torch.samples.sample_benchmark
+    python -m efficient_features_tpu_torch.samples.hpatches_description
 """

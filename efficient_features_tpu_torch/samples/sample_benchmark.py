@@ -1,7 +1,8 @@
 """Benchmark CLI (samples/sample_benchmark.cpp:27-37 CLI keys), on the port.
 
     python -m efficient_features_tpu_torch.samples.sample_benchmark [image]
-        [--benchmark-type {0,1,2}] [--nonmax-radius N] [--device cuda|cpu]
+        [--benchmark-type {0,1,2}] [--nonmax-radius N] [--hs-fused]
+        [--device cuda|cpu]
     0: detect-and-compute   1: detect-only   2: compute-only
 
 One warm-up call, then --num-iterations calls; on a GPU the mean time per
@@ -50,6 +51,9 @@ def main():
     ap.add_argument("--benchmark-type", type=int, default=0,
                     choices=range(len(NAMES)))
     ap.add_argument("--num-iterations", type=int, default=10)
+    ap.add_argument("--hs-fused", action="store_true",
+                    help="HashSIFT through the fused kernel (one launch per "
+                         "level instead of warp + histogram)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (plain versions)")
     args = ap.parse_args()
@@ -59,7 +63,8 @@ def main():
     feat = EfficientFeatures(
         nfeatures=args.max_keypoints, nlevels=args.num_levels,
         fast_threshold=args.fast_threshold, nonmax_radius=args.nonmax_radius,
-        descriptor_type=dtype, device=args.device)
+        descriptor_type=dtype, device=args.device,
+        hs_fused=args.hs_fused)
     img_t = torch.from_numpy(img).to(feat.device)
 
     print("=== configuration ===")

@@ -1,1 +1,3 @@
-"""Measurement tools of the port (run on a machine with a CUDA card)."""
+"""Tools of the port: `profile_paths` (device time by kernel; needs a CUDA
+card) and `eval_matching` (matching quality on the real fixtures; any
+device)."""

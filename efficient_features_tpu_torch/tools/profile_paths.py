@@ -9,15 +9,21 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256:
     `samples.sample_common.roi_mask` (K1 with its mask input);
   - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
     K9, then the flat top-k sort of every level's dense map);
+  - `fused_hs`: the `dac` call with `hs_fused=True` (the pyramid through
+    K10 as everywhere, HashSIFT through the fused kernel K11 instead of
+    K4 + K5);
+  - `batch4`: `detect_and_compute_batch` of 4 frames (the tiled scene and
+    three shifted copies), times per call of 4 frames;
   - `sequence`: one image-sequence step (detect and describe, the masked
     matcher in both directions, RANSAC with 256 iterations), alternating
     between two frames of a rigid warp of 64 different tiles.
 For each path: the wall time per call (host clock around CALLS calls that
 end in a synchronize, no profiler), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
-share, 1 - device time / wall time, and the device time of the sort
-kernels (top-k selection).  Prints the TOP kernels by device time and a
-JSON summary as the last line; `--out` also writes the summary to a
+share, 1 - device time / wall time, the device time of the sort kernels
+(top-k selection) and that of each of the port's own kernels (csrc/) by
+name.  Prints the TOP kernels by device time and a JSON summary as the last
+line; `--out` also writes the summary to a
 file.
 Exits non-zero without CUDA.
 """
@@ -26,9 +32,11 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -44,6 +52,27 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def port_kernel_names() -> frozenset:
+    """Names of the `__global__` functions in csrc/*.cu."""
+    pattern = re.compile(
+        r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
+    csrc = Path(__file__).resolve().parent.parent / "csrc"
+    return frozenset(name for src in csrc.glob("*.cu")
+                     for name in pattern.findall(src.read_text()))
+
+
+def port_kernel(name: str, ours: frozenset) -> str | None:
+    """The csrc/ kernel that a profiler kernel name stands for, or None.
+    The port's kernels all live in an anonymous namespace (so do a few of
+    PyTorch's, hence the check against the sources' names)."""
+    prefix = "(anonymous namespace)::"
+    name = name.removeprefix("void ")
+    if not name.startswith(prefix):
+        return None
+    short = name[len(prefix):].split("(")[0]
+    return short if short.split("<")[0] in ours else None
 
 
 def profile(fn) -> dict:
@@ -69,12 +98,15 @@ def profile(fn) -> dict:
         if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3 / CALLS
     device = sum(kernels.values())
+    ours = port_kernel_names()
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
             "kernels_ms": {k[:NAME]: v for k, v in ranked[:TOP]},
             "other_ms": sum(v for _, v in ranked[TOP:]),
-            "sort_ms": sum(v for k, v in ranked if "Sort" in k)}
+            "sort_ms": sum(v for k, v in ranked if "Sort" in k),
+            "port_kernels_ms": {port_kernel(k, ours): v for k, v in ranked
+                                if port_kernel(k, ours)}}
 
 
 def main() -> int:
@@ -93,10 +125,15 @@ def main() -> int:
     dev = torch.device("cuda")
     ef = EfficientFeatures(nfeatures=NFEATURES,
                            descriptor_type="hash_sift_256", device="cuda")
+    ef_fused = EfficientFeatures(nfeatures=NFEATURES,
+                                 descriptor_type="hash_sift_256",
+                                 device="cuda", hs_fused=True)
     ef5 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=5,
                             descriptor_type="hash_sift_256", device="cuda")
     scene = torch.from_numpy(SC.tiled_scene(H, W, 2160, False)).to(dev)
     roi = torch.from_numpy(SC.roi_mask(H, W)).to(dev)
+    batch = torch.stack([torch.roll(scene, (17 * i, 29 * i), (0, 1))
+                         for i in range(4)])
     base = SC.tiled_scene(H, W, 2160, True)
     frames = [torch.from_numpy(SC.warp_image(base, 2.0 * i, 5.0 * i, 1.0))
               .to(dev) for i in range(2)]
@@ -107,6 +144,8 @@ def main() -> int:
              "masked": lambda: ef.detect_and_compute_async(scene, mask=roi),
              "small_radius": lambda: ef5.detect_and_compute_async(scene,
                                                                   mask=roi),
+             "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
+             "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order))}
     summary = {"card": hw, "calls": CALLS, "paths": {}}
     for name, fn in paths.items():
@@ -120,6 +159,8 @@ def main() -> int:
         print(f"  {res['other_ms']:9.3f} ms  the other "
               f"{res['n_kernels'] - len(res['kernels_ms'])} kernels")
         print(f"  {res['sort_ms']:9.3f} ms  in sort kernels, all told")
+        print("  the port's kernels: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["port_kernels_ms"].items()))
     line = json.dumps(summary)
     if args.out:
         with open(args.out, "w") as f:

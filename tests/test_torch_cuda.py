@@ -7,12 +7,13 @@ jax it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances as in `tests/test_torch_kernels.py`,
-`tests/test_torch_detect_config.py` and `tests/test_torch_hash_sift.py`:
-K1 (with and without a mask), K2, K7, K8 and K9 bit-exact, K3 at most
-int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 rows
-|diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
-descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 must give
-the same bytes on every run.
+`tests/test_torch_detect_config.py`, `tests/test_torch_hash_sift.py`,
+`tests/test_torch_resize.py` and `tests/test_torch_hs_fused.py`:
+K1 (with and without a mask), K2, K7, K8, K9 and K10 bit-exact, K3 at most
+int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 and K11
+rows |diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
+descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must
+give the same bytes on every run, and K11 the bytes of K5 on K4's patches.
 """
 import numpy as np
 import pytest
@@ -369,3 +370,118 @@ def test_masked_tie_fallback_on_the_card_matches_the_cpu(dev):
     for k in slots[1]:
         if k != "angle":
             assert torch.equal(slots[0][k].cpu(), slots[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_hw,dst_hw", [
+    ((200, 300), (167, 250)), ((200, 300), (16, 20)), ((60, 90), (97, 151)),
+    ((131, 203), (109, 169)), ((9, 10), (8, 8)), ((50, 70), (41, 59))])
+def test_resize_kernel_matches_plain(dev, src_hw, dst_hw):
+    """K10 against `resize_u8`, bit for bit: a pyramid step, a tiny level,
+    an upscale, widths that are no multiple of 4, a size whose last group
+    of 4 is partial (41 * 59), on a scene, on noise and on all-255."""
+    from efficient_features_tpu_torch.ops import image as TI
+    rng = np.random.default_rng(sum(dst_hw))
+    imgs = [rng.integers(0, 256, src_hw, dtype=np.uint8),
+            np.full(src_hw, 255, np.uint8)]
+    if min(src_hw) > 16:
+        imgs.append(make_test_image(*src_hw, seed=3))
+    for img in imgs:
+        t = torch.from_numpy(img).to(dev)
+        before = TI.resize_u8_kernel.launches
+        got = TI.resize_u8_fast(t, dst_hw)
+        assert TI.resize_u8_kernel.launches == before + 1
+        assert got.dtype == torch.uint8 and got.is_contiguous()
+        assert torch.equal(got, TI.resize_u8(t, dst_hw))
+        assert torch.equal(got.cpu(), TI.resize_u8(t.cpu(), dst_hw))
+    with pytest.raises(ValueError, match="contiguous"):
+        TI.resize_u8_kernel(t.t(), dst_hw)
+
+
+@pytest.mark.cuda
+def test_pyramid_on_the_card_matches_the_cpu(dev):
+    from efficient_features_tpu_torch.ops import image as TI
+    img = make_test_image(200, 280, seed=5)
+    before = TI.resize_u8_kernel.launches
+    got = TI.build_pyramid(torch.from_numpy(img).to(dev), 1.2, 8)
+    assert TI.resize_u8_kernel.launches == before + 7
+    for a, b in zip(got, TI.build_pyramid(torch.from_numpy(img), 1.2, 8)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _edge_image():
+    """Hard 0/255 edges: gradients of +-255 in the histogram."""
+    img = np.zeros((160, 256), np.uint8)
+    img[:, 128:] = 255
+    img[40:80, 40:80] = 255
+    img[100:140, 160:200] = 0
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [31.0, 64.0, 300.0])
+@pytest.mark.parametrize("scene", ["scene", "edges"])
+def test_fused_hs_kernel_matches_two_stage_and_plain(dev, size, scene):
+    """K11 rows: the bytes of K5 on K4's patches, within the histogram
+    tolerance of the plain version, zero for invalid slots, the same on
+    every run; keypoints on the image corners included."""
+    img = make_test_image(200, 280, seed=33) if scene == "scene" \
+        else _edge_image()
+    h, w = img.shape
+    x, y, _, angle, valid = bad_keypoints(h, w, 300, seed=int(size))
+    t = torch.from_numpy(img).to(dev)
+    kp = [torch.from_numpy(a).to(dev)
+          for a in (x, y, np.full(300, size, np.float32), angle, valid)]
+    before = (WK.hs_desc_windows.launches, WK.warp_patches_windows.launches,
+              WK.hs_hist_from_patches.launches)
+    rows = WK.hs_desc_windows(t, *kp, 1.0)
+    assert (WK.hs_desc_windows.launches, WK.warp_patches_windows.launches,
+            WK.hs_hist_from_patches.launches) == (before[0] + 1, before[1],
+                                                  before[2])
+    staged = WK.hs_hist_from_patches(WK.warp_patches_windows(t, *kp, 1.0))
+    assert torch.equal(rows, staged)
+    _close_u8(rows, WK.hs_desc_windows_ref(t, *kp, 1.0), 2e-3)
+    assert int(rows[~kp[4]].to(torch.int32).sum()) == 0
+    assert bool((rows[kp[4]] != 0).any())
+    assert torch.equal(rows, WK.hs_desc_windows(t, *kp, 1.0))    # determinism
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descriptor_type", ["hash_sift_256",
+                                             "hash_sift_512"])
+def test_fused_slice_on_the_card(dev, descriptor_type):
+    """dAC with hs_fused=True on the card: the two-stage route's bytes, no
+    K4 or K5 launch, and within budget of the CPU port; compute() and the
+    batch entry point alike."""
+    from efficient_features_tpu_torch import HashSIFT
+    scene = make_test_image(200, 280, seed=7)
+    kw = dict(nfeatures=500, descriptor_type=descriptor_type)
+    fused = EfficientFeatures(device="cuda", hs_fused=True, **kw)
+    before = (WK.hs_desc_windows.launches, WK.warp_patches_windows.launches,
+              WK.hs_hist_from_patches.launches)
+    kf, df = fused.detect_and_compute_async(scene)
+    assert (WK.hs_desc_windows.launches, WK.warp_patches_windows.launches,
+            WK.hs_hist_from_patches.launches) == (before[0] + 8, before[1],
+                                                  before[2])
+    ks, ds = EfficientFeatures(device="cuda",
+                               **kw).detect_and_compute_async(scene)
+    assert torch.equal(df, ds)
+    assert all(torch.equal(kf._slots[k], ks._slots[k]) for k in kf._slots)
+    kc, dc = EfficientFeatures(device="cpu", hs_fused=True,
+                               **kw).detect_and_compute_async(scene)
+    for k in ("x", "y", "octave", "size", "response", "valid", "count"):
+        assert torch.equal(kf._slots[k].cpu(), kc._slots[k]), k
+    assert int((df.cpu() != dc).sum()) <= int(1e-4 * dc.numel()) + 1
+    nbits = int(descriptor_type.rsplit("_", 1)[1])
+    kp = np.stack([np.linspace(0, 279, 64), np.linspace(0, 199, 64),
+                   np.linspace(31, 300, 64), np.linspace(-1, 359, 64)],
+                  axis=1).astype(np.float32)
+    np.testing.assert_array_equal(
+        HashSIFT(1.0, nbits, device="cuda", fused=True).compute(scene, kp),
+        HashSIFT(1.0, nbits, device="cuda").compute(scene, kp))
+    frames = np.stack([scene, scene[::-1].copy()])
+    slots, desc = fused.detect_and_compute_batch(frames)
+    for i in range(2):
+        k1, d1 = fused.detect_and_compute_async(frames[i])
+        assert torch.equal(desc[i], d1)
+        assert all(torch.equal(slots[k][i], v) for k, v in k1._slots.items())

@@ -106,11 +106,16 @@ def test_port_imports_without_jax():
         "sys.modules['efficient_features_tpu'] = None\n"
         "import efficient_features_tpu_torch as T\n"
         "from efficient_features_tpu_torch import _build\n"
-        "from efficient_features_tpu_torch.ops import detect_kernels, "
-        "window_kernels, matcher, ransac\n"
-        "from efficient_features_tpu_torch.samples import sample_common, "
-        "sample_feature_matching, sample_image_sequence\n"
-        "from efficient_features_tpu_torch.tools import profile_paths\n"
+        "import importlib, pkgutil\n"
+        "names = [m.name for m in pkgutil.walk_packages(T.__path__, "
+        "T.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for want in ('ops.image', 'ops.window_kernels', 'ops.matcher', "
+        "'ops.ransac', 'parallel.sharding', "
+        "'samples.hpatches_description', 'samples.sample_image_sequence', "
+        "'tools.eval_matching', 'tools.profile_paths'):\n"
+        "    assert T.__name__ + '.' + want in names, want\n"
         "assert 'jaxlib' not in sys.modules\n"
         "print(sorted(T.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
