@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from `efficient_features_tpu_torch/csrc` and
 checks each against its plain PyTorch version on the card: K1 cells (with
-and without its ROI mask input, radius 10-48), K7 dense FAST+Harris+NMS
+and without its ROI mask input, radius 10-128, on the scene, the dense scene
+and 4K uniform noise, and an image whose corners all tie, so that each
+scans its whole disc), K7 dense FAST+Harris+NMS
 and K8 dense FAST+Harris (radius 1-9, five images, bit-exact), K9 disc NMS
 (radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
 moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
@@ -14,10 +16,13 @@ zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
 and all-255), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
 within K5's tolerance of its plain version, on detected keypoints, on
 sizes 31-300 px, on the image corners, on a saturated 0/255 edge image;
-invalid slots give zero rows; deterministic) and K6 best-2 Hamming search (bit-identical at 40000 x 40000, 256
-and 512 bits, unmasked and about 20% masked on each side, on a tie-heavy
-pool with a duplicate across train tiles and n2 not a multiple of the tile,
-rows with no valid pair; and `match`, `knn2_ratio_match`,
+invalid slots give zero rows; deterministic) and K6 best-2 Hamming search
+(bit-identical at 40000 x 40000, 256 and 512 bits, unmasked and about 20%
+masked on each side, on a tie-heavy pool with a duplicate across train
+tiles and n2 not a multiple of the tile, rows with no valid pair, at
+64 x 64, 1000 x 40000 and one off a tile multiple on both sides, with every
+query invalid, the same bits on a second run, one launch of each of its
+three kernels per call; and `match`, `knn2_ratio_match`,
 `knn2_ratio_match_masked` against their plain routes).  Then it drives the
 port's main paths at 2160x3840 with 40000 features, each with every
 launch count set to 0 just before and read just after:
@@ -37,9 +42,9 @@ launch count set to 0 just before and read just after:
   - the detector's configurations through `detect_and_compute`,
     HashSIFT-256 and BAD-256: (a) `mask=` the ROI of
     `sample_common.roi_mask` at radius 15 (K1 with its mask), (b) radius 5
-    (K7), (c) radius 5 with the ROI (K8, the mask, K9), (d) radius 64 (K8,
-    K9), each checked against the plain path on the card, each detect
-    kernel launched once per level.
+    (K7), (c) radius 5 with the ROI (K8, the mask, K9), (d) radius 64 (K1,
+    no K8 or K9 launch), each checked against the plain path on the card,
+    each detect kernel launched once per level.
   - the fused HashSIFT route: `detect_and_compute` with `hs_fused=True`,
     HashSIFT-256 and -512 (7 K10 and 8 K11 launches per call, no K4 or K5
     launch; descriptor bytes identical to the two-stage route, slots
@@ -116,6 +121,17 @@ SAMPLE_H_TOL = 1.0     # px
 PEAK_BYTES = 3.35e12
 PEAK_INT8_TC = 1979e12
 PEAK_F32 = 67e12
+# Two rates the datasheet does not state, for K6's bound.
+# 1-bit tensor-core ops/s (wgmma .b1 and.popc): 8 x the int8 rate, the ratio
+# of the A100's datasheet (4992 to 624 TOP/s).  The product alone, 40000 x
+# 40000, reads 13e15 / 14e15 ops/s at 256 / 512 bits on an NVIDIA H100 80GB
+# HBM3 at 700 W (efficient_features_tpu_torch/tools/knn2_probe.py: 0.062 /
+# 0.116 ms): 0.83 / 0.89 of this, and 6.7 / 7.1 x the stated int8 rate.
+PEAK_B1_TC = 8 * PEAK_INT8_TC
+# int32 min/max per second on the CUDA cores: 64 per clock and SM (NVIDIA's
+# table of arithmetic instruction throughput for compute capability 9.0) x
+# 132 SMs x 1.98 GHz, the clock behind the datasheet's 67 TFLOP/s.
+PEAK_INT32 = 64 * 132 * 1.98e9
 REPO = Path(__file__).resolve().parent
 
 
@@ -182,6 +198,15 @@ def tie_mask() -> np.ndarray:
     return mask
 
 
+def equal_image(h: int, w: int) -> np.ndarray:
+    """One bright pixel every 6 px each way: each is a FAST corner and all
+    have the same Harris response, so every corner ties with every other,
+    all survive, and K1's NMS scans the whole disc of each."""
+    cell = np.full((6, 6), 40, np.uint8)
+    cell[3, 3] = 220
+    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
+
+
 def wrap_image() -> np.ndarray:
     """A FAST-9 arc wrapping the index-0 tap (tests/test_kernels.py's
     wrap-run test)."""
@@ -235,83 +260,115 @@ def host_syncs(fn) -> int:
         torch.cuda.set_sync_debug_mode("default")
 
 
-def _work(name: str, args) -> tuple[float, float, float]:
-    """(bytes, CUDA-core ops, int8 tensor-core ops) of one wrapper call:
-    each input read once and each output written once, and the work the
-    function needs on these inputs.  Op counts are per-element estimates of
-    the algorithm's own arithmetic, each op counted once:
-      K1  FAST-9 at every pixel: 16 differences, 32 threshold compares
-          (the NMS compares are not counted); with a mask, 1 B more read
-          per pixel;
-      K7, K8  as K1, dense: 1 B read and 4 B written per pixel;
+def _work(name: str, args) -> tuple[float, float, float, float]:
+    """(bytes, CUDA-core ops at the float32 rate, int32 min/max, 1-bit
+    tensor-core ops) of one wrapper call: each input read once and each
+    output written once, and the work the function needs on these inputs.
+    Op counts are per-element estimates of the algorithm's own arithmetic,
+    each op counted once:
+      K1  FAST-9 at every pixel: 16 differences, 32 threshold compares;
+          per border-valid FAST corner of this image (inside the mask,
+          where there is one) 2 x 147 for the Harris sums and one compare
+          per pixel of the disc; with a mask, 1 B more read per pixel;
+      K7  as K1, dense: 1 B read and 4 B written per pixel;
+      K8  FAST-9 at every pixel, 1 B read and 4 B written per pixel;
       K9  4 B read and 1 B of bool written per pixel, one compare per
-          pixel (the disc compares are not counted);
+          pixel and per corner (a response that is not -inf) one compare
+          per pixel of the disc;
       K2  a multiply-add per moment per disc pixel: 4 x 705 per keypoint;
       K3  the integral image (2 adds per pixel) and per bit two box sums
           (3 adds each) and the weighted compare (3);
       K4  per sample the affine (4) and the bilinear lerp (8);
       K5  per pixel gradients, atan2, magnitude and votes (~40), per bin a
           weighted sum over <= 15x15 pixels (2 x 225);
-      K6  2 * n1 * n2 * nbits int8 tensor-core ops: a +-1 product of the
-          unpacked bits, the least the card could do it in (on the CUDA
-          cores this design needs n1 * n2 * nbits / 32 popc, see
-          knn2_hamming.cu);
+      K6  what any exact best-2 search needs: the n1 * n2 * nbits bit
+          products, 2 ops each, at the 1-bit tensor-core rate (the operand
+          type of the kernel; PEAK_B1_TC), and one int32 min per distance
+          on the CUDA cores (n1 * n2; the kernel's fold spends about 3.5
+          ops on each).  `int8_form_ms` gives the same product at the
+          stated int8 rate as a yardstick only: it is no bound;
       K10 source and destination pixels once and the six int32 tables; per
           destination pixel 6 multiplies, 3 adds, the rounding add and the
           shift (11);
       K11 the image once, 17 B of keypoint per slot and the 128 B row; K4's
           affine and lerp per sample plus K5's work per patch."""
-    if name == "fast_harris_nms_cells":
+    if name in ("fast_harris_nms_cells", "fast_harris_nms"):
+        from efficient_features_tpu_torch.ops import detect_kernels as DK
         h, w = args[0].shape
-        masked = len(args) > 3 and args[3] is not None
-        return (h * w * (2 if masked else 1) + 12 * -(-h // 8) * w,
-                48.0 * h * w, 0.0)
-    if name in ("fast_harris_nms", "fast_harris"):
+        mask = args[3] if len(args) > 3 else None
+        corner = DK.border_corners(args[0], args[1])
+        if mask is not None:
+            corner = corner & mask
+        ops = 48.0 * h * w + int(corner.sum()) * (2.0 * 147
+                                                  + _disc_pixels(args[2]))
+        if name == "fast_harris_nms":
+            return 5 * h * w, ops, 0.0, 0.0
+        return (h * w * (2 if mask is not None else 1)
+                + 12 * -(-h // 8) * w, ops, 0.0, 0.0)
+    if name == "fast_harris":
         h, w = args[0].shape
-        return 5 * h * w, 48.0 * h * w, 0.0
+        return 5 * h * w, 48.0 * h * w, 0.0, 0.0
     if name == "radius_nms":
+        from efficient_features_tpu_torch.ops import detect as D
         h, w = args[0].shape
-        return 5 * h * w, 1.0 * h * w, 0.0
+        corners = int((args[0] != D.RESP_SENTINEL).sum())
+        return (5 * h * w, 1.0 * h * w + corners * _disc_pixels(args[1]),
+                0.0, 0.0)
     if name == "ic_moments_windows":
         img, ys = args[0], args[1]
         n = ys.shape[0]
-        return img.numel() + 16 * n, 4.0 * 705 * n, 0.0
+        return img.numel() + 16 * n, 4.0 * 705 * n, 0.0, 0.0
     if name == "bad_descriptors_windows":
         img, n, nbits = args[0], args[1].shape[0], args[6]
         return (img.numel() + 17 * n + n * nbits // 8,
-                2.0 * img.numel() + 9.0 * nbits * n, 0.0)
+                2.0 * img.numel() + 9.0 * nbits * n, 0.0, 0.0)
     if name == "warp_patches_windows":
         img, n = args[0], args[1].shape[0]
-        return img.numel() + 17 * n + 1024 * n, 12.0 * 1024 * n, 0.0
+        return img.numel() + 17 * n + 1024 * n, 12.0 * 1024 * n, 0.0, 0.0
     if name == "hs_hist_from_patches":
         n = args[0].shape[0]
-        return 1152 * n, (40.0 * 1024 + 2 * 225 * 128) * n, 0.0
+        return 1152 * n, (40.0 * 1024 + 2 * 225 * 128) * n, 0.0, 0.0
     if name == "resize_u8_kernel":
         src, (h, w) = args
-        return src.numel() + h * w + 12 * (h + w), 11.0 * h * w, 0.0
+        return src.numel() + h * w + 12 * (h + w), 11.0 * h * w, 0.0, 0.0
     if name == "hs_desc_windows":
         img, n = args[0], args[1].shape[0]
         return (img.numel() + 17 * n + 128 * n,
-                (12.0 * 1024 + 40.0 * 1024 + 2 * 225 * 128) * n, 0.0)
+                (12.0 * 1024 + 40.0 * 1024 + 2 * 225 * 128) * n, 0.0, 0.0)
     if name == "knn2_topk2":
         q, vq, t, vt = args
         n1, n2, nb = q.shape[0], t.shape[0], q.shape[1]
         masks = (n1 if vq is not None else 0) + (n2 if vt is not None else 0)
-        return ((n1 + n2) * nb + masks + 12 * n1, 0.0,
+        return ((n1 + n2) * nb + masks + 12 * n1, 0.0, 1.0 * n1 * n2,
                 2.0 * n1 * n2 * 8 * nb)
     raise KeyError(name)
 
 
+def _disc_pixels(radius: int) -> float:
+    """Pixels of the open NMS disc of `radius`."""
+    from efficient_features_tpu_torch.utils import semantics as S
+    return float(sum(2 * wdx + 1 for _, wdx in S.disc_row_extents(radius)))
+
+
 def bound(name: str, calls) -> tuple[float, str]:
     """(bound_ms, bound_by) of a list of recorded (args, kwargs) calls: the
-    larger of bytes over the HBM rate and ops over their peak rate."""
-    nbytes = ops = tc = 0.0
-    for args, _ in calls:
-        b, o, t = _work(name, args)
-        nbytes, ops, tc = nbytes + b, ops + o, tc + t
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (ops / PEAK_F32 + tc / PEAK_INT8_TC) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    larger of bytes over the HBM rate and ops over their peak rate (the
+    CUDA cores and the tensor cores run side by side, so the larger of the
+    two, not their sum)."""
+    work = np.sum([_work(name, args) for args, _ in calls], axis=0)
+    t_bytes, *t_ops = work / (PEAK_BYTES, PEAK_F32, PEAK_INT32,
+                              PEAK_B1_TC) * 1e3
+    t_ops = max(t_ops)
+    return (float(max(t_bytes, t_ops)),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_form_ms(calls) -> float:
+    """K6's product as an int8 product of the unpacked bits at the stated
+    int8 rate: a yardstick beside the bound, not a bound (the 1-bit form
+    runs under it)."""
+    return float(sum(_work("knn2_topk2", args)[3] for args, _ in calls)
+                 / PEAK_INT8_TC * 1e3)
 
 
 def corner_err(Hm, H_true, hw) -> float:
@@ -478,29 +535,37 @@ def main() -> int:
     errs = dict.fromkeys(names, 0.0)
 
     stamp("kernels built; K1, K7, K8, K9, K10 against plain")
-    # -- K1: cells kernel vs plain, bit-exact ---------------------------------
-    def check_cells(name, image, radius=15):
-        got = DK.fast_harris_nms_cells(image, 20, radius)
-        ref = DK.fast_harris_nms_cells_ref(image, 20, radius)
+    def check_same(label, name, got, want):
+        """Bit-identical outputs of a kernel and its plain version."""
         torch.cuda.synchronize()
-        for label, a, b in zip(("cellmax", "cellrow", "cellcnt"), got, ref):
-            if a.shape != b.shape or not torch.equal(a, b):
-                bad = (a != b).nonzero()[:5].tolist() \
-                    if a.shape == b.shape else "shape"
-                fail(f"K1 {name} {label} differs: shapes {tuple(a.shape)} "
-                     f"{tuple(b.shape)}, first cells {bad}")
-        print(f"K1 {name} {tuple(image.shape)} radius {radius}: bit-exact, "
-              f"{int((ref[2] > 0).sum())} live cells, "
-              f"{int(ref[2].sum())} survivors")
-        errs["fast_harris_nms_cells"] = max(
-            [errs["fast_harris_nms_cells"]]
-            + [max_abs_err(a, b) for a, b in zip(got, ref)])
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist() \
+                if got.shape == want.shape else "shape"
+            fail(f"{label} differs from plain: shapes {tuple(got.shape)} "
+                 f"{tuple(want.shape)}, first differing {bad}")
+        errs[name] = max(errs[name], max_abs_err(got, want))
+
+    # -- K1: cells kernel vs plain, bit-exact ---------------------------------
+    def check_cells(label, image, radius=15, mask=None):
+        got = DK.fast_harris_nms_cells(image, 20, radius, mask)
+        ref = DK.fast_harris_nms_cells_ref(image, 20, radius, mask)
+        for what, a, b in zip(("cellmax", "cellrow", "cellcnt"), got, ref):
+            check_same(f"K1 {label} radius {radius} {what}",
+                       "fast_harris_nms_cells", a, b)
         return got
 
-    check_cells("scene", sparse)
-    check_cells("dense scene", img)
+    def check_cells_verbose(label, image, radius=15):
+        got = check_cells(label, image, radius)
+        print(f"K1 {label} {tuple(image.shape)} radius {radius}: bit-exact, "
+              f"{int((got[2] > 0).sum())} live cells, "
+              f"{int(got[2].sum())} survivors")
+        return got
+
+    check_cells_verbose("scene", sparse)
+    check_cells_verbose("dense scene", img)
     tie = torch.from_numpy(tie_image()).to(dev)
-    tie_cnt = check_cells("tie", tie)[2]                  # (12, 160)
+    tie_cnt = check_cells_verbose("tie", tie)[2]          # (12, 160)
     if int(tie_cnt.reshape(tie_cnt.shape[0], -1, 8).sum(dim=2).max()) < 2:
         fail("K1 tie image: no 8x8 block with tied co-survivors")
     # the tied block sends selection down the dense fallback on the card
@@ -519,21 +584,11 @@ def main() -> int:
     print(f"tie image detect: dense fallback taken, {int(tie_kps[0]['count'])}"
           " keypoints, slots bit-identical to the CPU port")
     wrap = torch.from_numpy(wrap_image()).to(dev)
-    check_cells("wrap", wrap)
+    check_cells_verbose("wrap", wrap)
     # radius 1 suppresses nothing, so the wrap-run corner itself must show
-    if not bool(torch.isfinite(check_cells("wrap", wrap, radius=1)[0][3, 32])):
+    if not bool(torch.isfinite(check_cells_verbose("wrap", wrap,
+                                                   radius=1)[0][3, 32])):
         fail("K1 missed the wrap-run corner")
-
-    def check_same(label, name, got, want):
-        """Bit-identical outputs of a kernel and its plain version."""
-        torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype or \
-                not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].tolist() \
-                if got.shape == want.shape else "shape"
-            fail(f"{label} differs from plain: shapes {tuple(got.shape)} "
-                 f"{tuple(want.shape)}, first differing {bad}")
-        errs[name] = max(errs[name], max_abs_err(got, want))
 
     # -- K7, K8: dense FAST + Harris (+ NMS) vs plain, bit-exact -------------
     crop = img[:H - 1, :W - 3].contiguous()          # ragged tiles both ways
@@ -601,22 +656,50 @@ def main() -> int:
           f"{crop_shapes[1]} and {crop_shapes[2]}, on the upscale "
           f"{tuple(level.shape)} -> {shapes[4]} and on 16x20 and 8x8 "
           "destinations")
-    del noise, white, level
+    del white, level
 
     # -- K1 with its ROI mask vs plain, bit-exact -----------------------------
     roi_np = SC.roi_mask(H, W)
     roi = torch.from_numpy(roi_np).to(dev)
+
+    # every radius >= 10 is K1's: beyond the former shared-memory plan (48),
+    # and where corners are dense (uniform noise: no list may drop one)
+    for radius in (48, 49, 64, 128):
+        cnt = [int(check_cells(f"{label}{' roi' if m is not None else ''}",
+                               image, radius, m)[2].sum())
+               for label, image in (("scene", sparse), ("dense scene", img))
+               for m in (None, roi != 0)]
+        print(f"K1 {H}x{W} radius {radius}: bit-exact on the scene and the "
+              f"dense scene, unmasked and under the ROI (survivors {cnt})")
+    for radius in (15, 64):
+        got = check_cells("noise", noise, radius)
+        print(f"K1 uniform noise {H}x{W} radius {radius}: bit-exact, "
+              f"{int(DK.border_corners(noise, 20).sum())} corners, "
+              f"{int(got[2].sum())} survivors")
+    del noise
+    # no corner suppresses another, so each scans its whole disc: the most
+    # the NMS can be asked for at a corner count
+    equal = torch.from_numpy(equal_image(H, W)).to(dev)
+    n_equal = int(DK.border_corners(equal, 20).sum())
+    for radius in (15, 64):
+        got = check_cells("equal responses", equal, radius)
+        if int(got[2].sum()) != n_equal:
+            fail(f"K1 equal responses radius {radius}: {int(got[2].sum())} "
+                 f"survivors of {n_equal} tied corners")
+        e_ms = time_ms(lambda: DK.fast_harris_nms_cells(equal, 20, radius),
+                       iters=5, warmup=1)
+        e_b, e_by = bound("fast_harris_nms_cells",
+                          [((equal, 20, radius), {})])
+        print(f"K1 equal responses {H}x{W} radius {radius}: bit-exact, all "
+              f"{n_equal} tied corners survive, each scanning its whole "
+              f"disc: {e_ms:.3f} ms, bound {e_b:.4f} ms by {e_by} [{hw}]")
+    del equal
     for radius in (10, 15, 22, 48):
         unmasked = DK.fast_harris_nms_cells(img, 20, radius)
         cnt = []
         for label, m in (("roi", roi != 0), ("random", rnd),
                          ("all-255", torch.ones_like(rnd))):
-            got = DK.fast_harris_nms_cells(img, 20, radius, m)
-            for what, a, b in zip(("cellmax", "cellrow", "cellcnt"), got,
-                                  DK.fast_harris_nms_cells_ref(img, 20,
-                                                               radius, m)):
-                check_same(f"K1 mask {label} radius {radius} {what}",
-                           "fast_harris_nms_cells", a, b)
+            got = check_cells(f"mask {label}", img, radius, m)
             cnt.append(int(got[2].sum()))
         if not all(torch.equal(a, b) for a, b in zip(got, unmasked)):
             fail(f"K1 radius {radius}: an all-255 mask differs from none")
@@ -857,11 +940,45 @@ def main() -> int:
                                      torch.zeros_like(v2p))
         if bool((j != 0).any()) or bool((best != TM.BIG).any()):
             fail("K6: no valid train row did not give (j 0, best 1 << 30)")
+        # small and ragged shapes: one block, a skinny query side, one off
+        # a 128-row tile on both sides; every query invalid; a second run
+        for n1, n2 in ((64, 64), (1000, N_KP), (129, 257), (127, 255)):
+            for pool in (False, True):
+                qs, v1s, ts, v2s = knn2_inputs(nbytes, n1, n2, pool=pool)
+                what = f"{8 * nbytes} bits {n1} x {n2}" \
+                    f"{' tie pool' if pool else ''}"
+                check_knn2(what, qs, None, ts, None)
+                check_knn2(what + " masked", qs, v1s, ts, v2s)
+        j, best, second = check_knn2(f"{8 * nbytes} bits every query invalid",
+                                     qs, torch.zeros_like(v1s), ts, v2s)
+        if bool((j != 0).any()) or bool((best != TM.BIG).any()) or \
+                bool((second != TM.BIG).any()):
+            fail("K6: invalid queries did not give (0, 1 << 30, 1 << 30)")
+        first = TM.knn2_topk2(q, v1, t, v2)
+        again = TM.knn2_topk2(q, v1, t, v2)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"K6 {8 * nbytes} bits: two runs differ")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            TM.knn2_topk2(q, v1, t, v2)
+            torch.cuda.synchronize()
+        k6_launches = {k: sum(e.count for e in prof.key_averages()
+                              if k in e.key)
+                       for k in ("knn2_prep_kernel", "knn2_mma_kernel",
+                                 "knn2_merge_kernel")}
+        if any(c != 1 for c in k6_launches.values()):
+            fail(f"K6: kernel launches of one wrapper call {k6_launches}, "
+                 "expected one of each")
         print(f"K6 {8 * nbytes} bits: bit-identical to plain at {N_KP} x "
               f"{N_KP} unmasked and masked (20% invalid each side; invalid "
               f"rows give j 0, best 1 << 30), on a 6-descriptor tie pool at "
               f"{N_KP} x {N_KP - 1} (duplicate across tiles, n2 not a "
-              "multiple of 256) and with no valid train row")
+              f"multiple of 128), with no valid train row, at 64 x 64, "
+              f"1000 x {N_KP}, 129 x 257 and 127 x 255 (random and tie pool, "
+              f"unmasked and masked), with every query invalid; two runs "
+              f"bit-identical; one call launches {k6_launches}; split "
+              f"{TM.knn2_plan(N_KP, N_KP)[0]} train rows a block")
 
     stamp("main path 1: detect_and_compute")
     # -- main path 1: detect_and_compute through the kernels ----------------
@@ -1026,7 +1143,9 @@ def main() -> int:
     configs = [("a", 15, True, ["fast_harris_nms_cells"]),
                ("b", 5, False, ["fast_harris_nms"]),
                ("c", 5, True, ["fast_harris", "radius_nms"]),
-               ("d", 64, False, ["fast_harris", "radius_nms"])]
+               ("d", 64, False, ["fast_harris_nms_cells"])]
+    detect_routes = ("fast_harris_nms_cells", "fast_harris_nms",
+                     "fast_harris", "radius_nms")
     config_calls = {}
     for dtype in ("hash_sift_256", "bad_256"):
         kind = dtype.rsplit("_", 1)[0]
@@ -1041,7 +1160,8 @@ def main() -> int:
                 label, lambda: ef.detect_and_compute_async(scene,
                                                            mask=m_host),
                 pyramid_kernels + ["ic_moments_windows"] + route
-                + desc_kernels[kind])
+                + desc_kernels[kind],
+                forbid=[k for k in detect_routes if k not in route])
             if any(counts[k] != ef.get_n_levels() for k in route):
                 fail(f"{label}: {counts} launches, expected one per level "
                      "of each detect kernel")
@@ -1367,8 +1487,8 @@ def main() -> int:
     for label, name, calls in (
             ("masked, config (a)", "fast_harris_nms_cells",
              config_calls["a"]["fast_harris_nms_cells"]),
-            ("radius 64, config (d)", "radius_nms",
-             config_calls["d"]["radius_nms"])):
+            ("radius 64, config (d)", "fast_harris_nms_cells",
+             config_calls["d"]["fast_harris_nms_cells"])):
         fn, ref = getattr(DK, name), getattr(DK, name + "_ref")
 
         def replay(f, calls=calls):
@@ -1425,9 +1545,12 @@ def main() -> int:
         d = torch.from_numpy(rng.integers(0, 256, (N_KP, nbytes),
                                           dtype=np.uint8)).to(dev)
         k6_ms = time_ms(lambda: TM.knn2_topk2(d, None, d, None), iters=5)
+        one = [((d, None, d, None), {})]
+        b_ms, b_by = bound("knn2_topk2", one)
         print(f"time knn2_topk2 {8 * nbytes} bits, one launch at {N_KP} x "
-              f"{N_KP}: {k6_ms:.3f} ms, bound "
-              f"{bound('knn2_topk2', [((d, None, d, None), {})])[0]:.4f} "
+              f"{N_KP}: {k6_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} (1-bit "
+              f"product and one min per distance); yardstick, no bound: the "
+              f"product as int8 at the stated rate {int8_form_ms(one):.4f} "
               f"ms [{hw}]")
     bounds = {name: bound(name, recorded[name]) for name in names}
     for name in names:

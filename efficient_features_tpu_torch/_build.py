@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "eff_fast_harris_nms_cells": [_P, _P, _I, _I, _I, _I, _P,
-                                  ctypes.c_float, _P, _P, _P, _P],
+    "eff_fast_harris_nms_cells": [_P, _P, _I, _I, _I, _I, _P, _I,
+                                  ctypes.c_float, _P, _P, _P, _P, _P],
     "eff_fast_harris_nms": [_P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],
     "eff_fast_harris": [_P, _I, _I, _I, ctypes.c_float, _P, _P],
     "eff_radius_nms": [_P, _I, _I, _I, _P, _P, _P],
@@ -42,7 +42,8 @@ _SIGNATURES = {
                             _I, _P, _P],
     "eff_warp_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "eff_hs_hist": [_P, _I, _P, ctypes.c_float, _P, _P],
-    "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                         _P],
     "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "eff_hs_desc": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_float,
                     _P, _P],
@@ -89,7 +90,6 @@ def _compile_and_link(srcs: list[Path], tmp: Path, so: Path) -> None:
     nvcc = _nvcc()
     cus = [p for p in srcs if p.suffix == ".cu"]
     objs = [str(tmp / f"{p.stem}.o") for p in cus]
-    _State.log = ""
     _run([[nvcc, *NVCC_FLAGS, "-I", str(_SRC), "-c", "-o", o, str(p)]
           for p, o in zip(cus, objs)])
     lib = str(tmp / so.name)
@@ -97,24 +97,28 @@ def _compile_and_link(srcs: list[Path], tmp: Path, so: Path) -> None:
     os.replace(lib, so)   # atomic: a concurrent process never sees half
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    if _State.lib is not None:
-        return _State.lib
-    srcs = _sources()
+def _built(srcs: list[Path], stem: str) -> tuple[Path, float]:
+    """(path, nvcc seconds) of the shared library of `srcs`, built unless a
+    build of the same sources and flags is there already (0.0 seconds)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    so = _OUT / f"libeff_kernels_{digest.hexdigest()[:16]}.so"
+    so = _OUT / f"{stem}_{digest.hexdigest()[:16]}.so"
     if so.exists():
-        _State.build_seconds = 0.0
-    else:
-        _OUT.mkdir(exist_ok=True)
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=_OUT) as tmp:
-            _compile_and_link(srcs, Path(tmp), so)
-        _State.build_seconds = time.perf_counter() - t0
+        return so, 0.0
+    _OUT.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_OUT) as tmp:
+        _compile_and_link(srcs, Path(tmp), so)
+    return so, time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    if _State.lib is not None:
+        return _State.lib
+    so, _State.build_seconds = _built(_sources(), "libeff_kernels")
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -124,6 +128,15 @@ def library() -> ctypes.CDLL:
     lib.eff_error_string.restype = ctypes.c_char_p
     _State.lib = lib
     return lib
+
+
+def tool_library(source: Path) -> ctypes.CDLL:
+    """A library of one measuring tool's own .cu file, which may include the
+    headers of csrc/; built like the kernel library and apart from it.  The
+    caller sets the argument types of what it calls."""
+    headers = [p for p in _sources() if p.suffix != ".cu"]
+    so, _ = _built(headers + [source], f"lib{source.stem}")
+    return ctypes.CDLL(str(so))
 
 
 def build_seconds() -> float | None:

@@ -10,7 +10,7 @@ The device is explicit: `EfficientFeatures(..., device="cuda")` (and `BAD`,
 `device="cpu"` runs the plain versions of the kernels.  The `_async` methods
 enqueue on the current CUDA stream and return device tensors;
 `KeyPoints.block()` waits for that stream.
-On the cells route (nonmax_radius 10..48) the tie-fallback decision reads
+On the cells route (nonmax_radius >= 10) the tie-fallback decision reads
 one flag per pyramid level, so an `_async` call still syncs the host once
 per level there.
 """
@@ -33,9 +33,26 @@ class KeyPoints:
     """Device-resident keypoint set (fixed-capacity slots + validity mask),
     fields as in the reference's SoA layout plus octave and size."""
 
-    def __init__(self, slots: dict):
+    def __init__(self, slots: dict, max_size: float | None = None,
+                 level_ranges: tuple | None = None):
         self._slots = slots
         self._host = None
+        self._max_size = max_size
+        self._level_ranges = level_ranges
+
+    @property
+    def max_size(self) -> float | None:
+        """Static bound on the keypoint sizes of detector output,
+        31 * scale_factor**(nlevels - 1); None when unknown (user slots)."""
+        return self._max_size
+
+    @property
+    def level_ranges(self) -> tuple | None:
+        """Static ((start, stop, size), ...) slot layout of detector output
+        (`pipeline.level_slot_ranges`), one entry per pyramid level; None
+        when unknown (user slots).  The port does not route on it: one
+        kernel call covers every keypoint size."""
+        return self._level_ranges
 
     def block(self) -> "KeyPoints":
         """Wait for the stream that computes the slots."""
@@ -312,7 +329,16 @@ class EfficientFeatures:
 
     def detect_async(self, image, mask=None, mesh=None) -> KeyPoints:
         img, mask = self._inputs(image, mask, mesh)
-        return KeyPoints(P.detect(img, self._cfg, mask))
+        return self._keypoints(P.detect(img, self._cfg, mask), img.shape)
+
+    def _keypoints(self, slots: dict, hw) -> KeyPoints:
+        """Detector output with its static size bound and slot layout."""
+        cfg = self._cfg
+        return KeyPoints(
+            slots,
+            max_size=float(P.S.PATCH_SIZE
+                           * cfg.scale_factor ** (cfg.nlevels - 1)),
+            level_ranges=P.level_slot_ranges(cfg, int(hw[0]), int(hw[1])))
 
     def compute(self, image, keypoints) -> np.ndarray:
         return self._describer().compute(image, keypoints)
@@ -339,7 +365,7 @@ class EfficientFeatures:
         invalid slots have zero rows."""
         img, mask = self._inputs(image, mask, mesh)
         slots, descs = P.detect_and_compute(img, self._cfg, mask)
-        return KeyPoints(slots), descs
+        return self._keypoints(slots, img.shape), descs
 
     def convert(self, keypoints: KeyPoints):
         """KeyPoints -> list of cv2.KeyPoint (reference `convert`)."""
@@ -370,7 +396,8 @@ class EfficientFeatures:
             return slots, desc
         host = {k: v.cpu() for k, v in slots.items()}
         desc = desc.cpu().numpy()
-        return [(KeyPoints({k: v[i] for k, v in host.items()}),
+        return [(self._keypoints({k: v[i] for k, v in host.items()},
+                                 imgs.shape[1:]),
                  desc[i][host["valid"][i].numpy()])
                 for i in range(imgs.shape[0])]
 

@@ -1,16 +1,29 @@
 // Detect math shared by K1 (fast_harris_nms_cells.cu), K7
-// (fast_harris_nms.cu) and K8 (fast_harris.cu): FAST-9 (two-mask
-// rotate-AND chain), exact-int Sobel and 7x7 structure-tensor sums, the
-// Harris response with truncated mantissas and k = 3/64 (every float product
-// exact), the 15 px border, an optional ROI mask, and the disc NMS test where
+// (fast_harris_nms.cu) and K8 (fast_harris.cu): FAST-9 (a run of 9 in
+// either of two 16-bit masks), exact-int Sobel and 7x7 structure-tensor
+// sums, the Harris response with truncated mantissas and k = 3/64 (every
+// float product exact), the 15 px border, an optional ROI mask, and the disc NMS test where
 // ties co-survive.  One copy of the selection-feeding math for all three.
+// They replace the TPU kernels of
+// efficient_features_tpu/ops/pallas_kernels.py named in each source.
 //
-// Staging: a 256-thread block owns a 32x64 output tile.  It stages the tile
-// plus a (R + 4) px halo of u8 pixels in shared memory (R = radius - 1, the
-// NMS reach; 0 for K8), computes Sobel gradients once (int16), then the
-// masked response of the tile plus its R ring: -inf outside FAST corners,
-// the border, the image or the mask, so a masked-out pixel neither survives
-// nor suppresses.  Harris runs only where a pixel passes the cheap tests.
+// What bounds this math on the H100: corners are a few percent of the
+// pixels, so FAST (48 integer operations at every pixel) is the dense part
+// and Harris (147 multiply-adds over 98 gradients) is sparse.  A thread per
+// pixel that runs Harris where its pixel is a corner leaves most lanes of a
+// warp idle through the whole of it.
+//
+// Staging, what the design does about that: a 256-thread block owns a 32x64
+// output tile.  It stages the tile plus a (R + 4) px halo of u8 pixels in
+// shared memory (R = radius - 1, the NMS reach of K7; 0 for K8 and K1), runs
+// FAST, the border and the mask densely over the tile plus its R ring, and
+// compacts the corners into a list (warp ballot; the list's order does not
+// matter, each corner's response lands in its own pixel).  Then every thread
+// takes a corner of the list and computes its Harris response straight from
+// the u8 window, Sobel on the fly over the 9x9 neighbourhood: no gradient
+// planes, and the warps stay full.  The response of the region is -inf
+// outside FAST corners, the border, the image or the mask, so a masked-out
+// pixel neither survives nor suppresses.
 // Build with -fmad=false: the truncations keep Harris products exact, and no
 // sum may be contracted into an FMA.
 #pragma once
@@ -28,6 +41,7 @@ constexpr int kThreads = (kTileH / 8) * kTileW;
 constexpr int kHalo = 4;          // FAST circle 3; Sobel 1 + box window 3
 constexpr int kBorder = 15;       // HALF_PATCH_SIZE
 constexpr float kHarrisK = 3.0f / 64.0f;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // FAST_CIRCLE (semantics.py) in circular bit order
 __constant__ int kFastDy[16] = {3, 3, 2, 1, 0, -1, -2, -3,
@@ -35,23 +49,23 @@ __constant__ int kFastDy[16] = {3, 3, 2, 1, 0, -1, -2, -3,
 __constant__ int kFastDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
                                 0, -1, -2, -3, -3, -3, -2, -1};
 
-// Disc half-widths, entry i for dy = i - R (semantics.disc_row_extents),
-// passed by value so the NMS reads them from the constant bank.
-struct DiscTable {
-  int wdx[2 * EFF_CELLS_MAX_RADIUS];
-};
-
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __device__ __forceinline__ float trunc_mantissa(float x, int drop) {
   return __int_as_float(__float_as_int(x) & ~((1 << drop) - 1));
 }
 
+// True when the 16-bit ring `m` holds 9 consecutive set bits.  On the ring
+// laid out twice in 32 bits, bit i of x stays set while a run of 2, 4, 8 and
+// then 9 bits starts at i; a run that starts in the low half ends below bit
+// 24.  Equal to the rotate-AND chain of the JAX kernel on all 65536 masks.
 __device__ __forceinline__ bool any_run9(unsigned m) {
-  unsigned acc = m;
-#pragma unroll
-  for (int s = 1; s < 9; ++s) acc &= ((m >> s) | (m << (16 - s))) & 0xFFFFu;
-  return acc != 0;
+  unsigned x = m | (m << 16);
+  x &= x >> 1;
+  x &= x >> 2;
+  x &= x >> 4;
+  x &= x >> 1;
+  return (x & 0xFFFFu) != 0;
 }
 
 __device__ __forceinline__ bool fast9(const uint8_t* p, int stride,
@@ -59,6 +73,12 @@ __device__ __forceinline__ bool fast9(const uint8_t* p, int stride,
   const int c = p[0];
   const int hi = c + threshold;
   const int lo = c - threshold;
+  // any 9 consecutive taps hold at least two of the four compass taps
+  // (0, 4, 8, 12): most pixels of a flat region stop here
+  const int n = p[3 * stride], e = p[3], s = p[-3 * stride], w = p[-3];
+  if ((n > hi) + (e > hi) + (s > hi) + (w > hi) < 2 &&
+      (n < lo) + (e < lo) + (s < lo) + (w < lo) < 2)
+    return false;
   unsigned brighter = 0, darker = 0;
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -69,16 +89,34 @@ __device__ __forceinline__ bool fast9(const uint8_t* p, int stride,
   return any_run9(brighter) || any_run9(darker);
 }
 
-// Harris response from the 7x7 box of gradients whose top-left is gx[0]
-__device__ __forceinline__ float harris(const int16_t* gx, const int16_t* gy,
-                                        int stride, float s2) {
-  int sxx = 0, sxy = 0, syy = 0;
-  for (int dy = 0; dy < 7; ++dy) {
-    const int16_t* rx = gx + dy * stride;
-    const int16_t* ry = gy + dy * stride;
+// Harris response at pixel `p` of a u8 window: Sobel gradients of the 7x7
+// box around p from the 9x9 pixels around it, three pixel rows at a time.
+// The integer sums are order-free; the float steps keep their order.
+__device__ __forceinline__ float harris_at(const uint8_t* p, int stride,
+                                           float s2) {
+  int px[3][9];
 #pragma unroll
-    for (int dx = 0; dx < 7; ++dx) {
-      const int a = rx[dx], b = ry[dx];
+  for (int j = 0; j < 9; ++j) {
+    px[0][j] = p[-4 * stride + j - 4];
+    px[1][j] = p[-3 * stride + j - 4];
+  }
+  int sxx = 0, sxy = 0, syy = 0;
+#pragma unroll
+  for (int r = 0; r < 7; ++r) {          // gradient row r - 3
+    // pixel rows r - 4, r - 3, r - 2 sit in px[up], px[mid], px[down]
+    const int up = r % 3, mid = (r + 1) % 3, down = (r + 2) % 3;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) px[down][j] = p[(r - 2) * stride + j - 4];
+    int col[9];                          // vertical 1-2-1 sums
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      col[j] = px[up][j] + 2 * px[mid][j] + px[down][j];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      const int a = col[j + 1] - col[j - 1];
+      const int b =
+          (px[down][j - 1] + 2 * px[down][j] + px[down][j + 1]) -
+          (px[up][j - 1] + 2 * px[up][j] + px[up][j + 1]);
       sxx += a * a;
       sxy += a * b;
       syy += b * b;
@@ -92,88 +130,114 @@ __device__ __forceinline__ float harris(const int16_t* gx, const int16_t* gy,
   return __fsub_rn(det, __fmul_rn(kHarrisK, __fmul_rn(tr, tr)));
 }
 
+// Append the lanes with `take` set to a list in shared memory (`item` per
+// lane, `count` the list's length).  Every lane of the warp must call it.
+__device__ __forceinline__ void warp_append(bool take, uint16_t item,
+                                            uint16_t* list, int* count) {
+  const unsigned m = __ballot_sync(kFullWarp, take);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31;
+  int slot = 0;
+  if (lane == 0) slot = atomicAdd(count, __popc(m));
+  slot = __shfl_sync(kFullWarp, slot, 0);
+  if (take) list[slot + __popc(m & ((1u << lane) - 1))] = item;
+}
+
 // Shared-memory layout of one block for NMS reach R.
 struct Stage {
   int eh, ew;    // response region: tile + R ring
-  int gh, gw;    // gradient region
   int wh, ww;    // pixel window
   float* resp;
-  int16_t* gxs;
-  int16_t* gys;
+  uint16_t* list;   // region indices of the corners
+  int* count;
   uint8_t* win;
 };
 
 size_t stage_smem_bytes(int R) {
   const size_t eh = kTileH + 2 * R, ew = kTileW + 2 * R;
-  return eh * ew * sizeof(float) + 2 * (eh + 6) * (ew + 6) * sizeof(int16_t)
-         + (eh + 8) * (ew + 8);
+  return eh * ew * (sizeof(float) + sizeof(uint16_t)) + sizeof(int)
+         + (eh + 2 * kHalo) * (ew + 2 * kHalo);
 }
 
 __device__ __forceinline__ Stage stage_layout(unsigned char* smem, int R) {
   Stage st;
   st.eh = kTileH + 2 * R;
   st.ew = kTileW + 2 * R;
-  st.gh = st.eh + 6;
-  st.gw = st.ew + 6;
-  st.wh = st.eh + 8;
-  st.ww = st.ew + 8;
+  st.wh = st.eh + 2 * kHalo;
+  st.ww = st.ew + 2 * kHalo;
   st.resp = reinterpret_cast<float*>(smem);
-  st.gxs = reinterpret_cast<int16_t*>(st.resp + st.eh * st.ew);
-  st.gys = st.gxs + st.gh * st.gw;
-  st.win = reinterpret_cast<uint8_t*>(st.gys + st.gh * st.gw);
+  st.list = reinterpret_cast<uint16_t*>(st.resp + st.eh * st.ew);
+  st.count = reinterpret_cast<int*>(st.list + st.eh * st.ew);  // eh even
+  st.win = reinterpret_cast<uint8_t*>(st.count + 1);
   return st;
 }
 
 // Fill st.resp with the masked response of the block's tile (origin y0, x0)
 // plus its R ring; response (r, c) is image (y0 - R + r, x0 - R + c).
 // `mask`: (h, w) uint8, nonzero = search here, or NULL for none.
+// blockDim.x must be a multiple of 32.
 __device__ void stage_masked_response(const uint8_t* __restrict__ img,
                                       const uint8_t* __restrict__ mask, int h,
                                       int w, int threshold, int R, float s2,
                                       int y0, int x0, const Stage& st) {
-  // 1. pixels of the tile + halo; zero outside the image
-  for (int i = threadIdx.x; i < st.wh * st.ww; i += blockDim.x) {
-    const int gy = y0 - R - kHalo + i / st.ww;
-    const int gx = x0 - R - kHalo + i % st.ww;
-    st.win[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                    ? img[static_cast<size_t>(gy) * w + gx] : 0;
+  // 1. pixels of the tile + halo, a warp per window row; zero outside the
+  //    image
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  if (threadIdx.x == 0) *st.count = 0;
+  for (int r = warp; r < st.wh; r += warps) {
+    const int gy = y0 - R - kHalo + r;
+    const bool row_in = gy >= 0 && gy < h;
+    const uint8_t* src = img + static_cast<size_t>(row_in ? gy : 0) * w;
+    for (int c = lane; c < st.ww; c += 32) {
+      const int gx = x0 - R - kHalo + c;
+      st.win[r * st.ww + c] = (row_in && gx >= 0 && gx < w) ? src[gx] : 0;
+    }
   }
   __syncthreads();
 
-  // 2. Sobel; gradient (i, j) sits at window (i + 1, j + 1)
-  for (int i = threadIdx.x; i < st.gh * st.gw; i += blockDim.x) {
-    const int ww = st.ww;
-    const uint8_t* p = st.win + (i / st.gw + 1) * ww + (i % st.gw + 1);
-    const int mm = p[-ww - 1], m0 = p[-ww], mp = p[-ww + 1];
-    const int zm = p[-1], zp = p[1];
-    const int pm = p[ww - 1], p0 = p[ww], pp = p[ww + 1];
-    st.gxs[i] = static_cast<int16_t>((pp + 2 * zp + mp) - (pm + 2 * zm + mm));
-    st.gys[i] = static_cast<int16_t>((pm + 2 * p0 + pp) - (mm + 2 * m0 + mp));
+  // 2. the cheap tests at every pixel of the region, a warp per region row,
+  //    corners to the list; response (r, c) is window (r + 4, c + 4)
+  for (int r = warp; r < st.eh; r += warps) {
+    const int gy = y0 - R + r;
+    const bool row_ok = gy >= kBorder && gy < h - kBorder;
+    for (int base = 0; base < st.ew; base += 32) {
+      const int c = base + lane;
+      const int gx = x0 - R + c;
+      bool corner = false;
+      if (c < st.ew) {
+        corner = row_ok && gx >= kBorder && gx < w - kBorder &&
+                 (mask == nullptr ||
+                  mask[static_cast<size_t>(gy) * w + gx] != 0) &&
+                 fast9(st.win + (r + kHalo) * st.ww + (c + kHalo), st.ww,
+                       threshold);
+        st.resp[r * st.ew + c] = neg_inf();
+      }
+      warp_append(corner, static_cast<uint16_t>(r * st.ew + c), st.list,
+                  st.count);
+    }
   }
   __syncthreads();
 
-  // 3. masked response; response (r, c) is window (r + 4, c + 4), and its
-  //    7x7 box starts at gradient (r, c)
-  for (int i = threadIdx.x; i < st.eh * st.ew; i += blockDim.x) {
+  // 3. Harris at the corners, one corner per thread
+  const int n = *st.count;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int i = st.list[k];
     const int r = i / st.ew, c = i % st.ew;
-    const int gy = y0 - R + r, gx = x0 - R + c;
-    float v = neg_inf();
-    if (gy >= kBorder && gy < h - kBorder && gx >= kBorder &&
-        gx < w - kBorder &&
-        (mask == nullptr || mask[static_cast<size_t>(gy) * w + gx] != 0) &&
-        fast9(st.win + (r + kHalo) * st.ww + (c + kHalo), st.ww, threshold))
-      v = harris(st.gxs + r * st.gw + c, st.gys + r * st.gw + c, st.gw, s2);
-    st.resp[i] = v;
+    st.resp[i] = harris_at(st.win + (r + kHalo) * st.ww + (c + kHalo), st.ww,
+                           s2);
   }
   __syncthreads();
 }
 
 // Disc NMS of the staged response at `center` (value v, not -inf): true when
 // no response in the open disc is larger.  Stops at the first larger one.
+// wdx: the disc's half-widths, entry i for dy = i - R
+// (semantics.disc_row_extents).
 __device__ __forceinline__ bool survives(const float* center, float v, int ew,
-                                         int R, const DiscTable& disc) {
+                                         int R, const int* wdx) {
   for (int dy = -R; dy <= R; ++dy) {
-    const int wd = disc.wdx[dy + R];
+    const int wd = wdx[dy + R];
     const float* row = center + dy * ew;
     for (int dx = -wd; dx <= wd; ++dx)
       if (row[dx] > v) return false;
@@ -181,15 +245,50 @@ __device__ __forceinline__ bool survives(const float* center, float v, int ew,
   return true;
 }
 
-// Copy the host disc table and set the block's dynamic shared memory.
+// The dense masked response of an image, tile by tile: K8's kernel, and the
+// first of K1's two.  out: (h, w) f32, the Harris response at border-valid
+// FAST corners inside the mask, -inf elsewhere.  Each thread stores 8 rows
+// of one column, so for each row a warp stores 32 consecutive floats.
+__global__ void __launch_bounds__(kThreads)
+fast_harris_kernel(const uint8_t* __restrict__ img,
+                   const uint8_t* __restrict__ mask, int h, int w,
+                   int threshold, float s2, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Stage st = stage_layout(smem, 0);
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  stage_masked_response(img, mask, h, w, threshold, 0, s2, y0, x0, st);
+
+  const int cr = threadIdx.x / kTileW, cc = threadIdx.x % kTileW;
+  const int x = x0 + cc;
+  if (x >= w) return;
+  for (int k = 0; k < 8; ++k) {
+    const int ty = cr * 8 + k;
+    if (y0 + ty >= h) return;
+    out[static_cast<size_t>(y0 + ty) * w + x] = st.resp[ty * st.ew + cc];
+  }
+}
+
+// Set a staged kernel's dynamic shared memory for NMS reach R.
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int R, const int32_t* disc_wdx,
-                    DiscTable* disc, size_t* smem) {
-  for (int i = 0; i < 2 * R + 1; ++i) disc->wdx[i] = disc_wdx ? disc_wdx[i] : 0;
+cudaError_t prepare(Kernel kernel, int R, size_t* smem) {
   *smem = stage_smem_bytes(R);
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
+}
+
+// Launch `fast_harris_kernel` over the whole image.
+cudaError_t launch_fast_harris(const uint8_t* img, const uint8_t* mask, int h,
+                               int w, int threshold, float s2, float* out,
+                               cudaStream_t stream) {
+  size_t smem;
+  const cudaError_t err = prepare(fast_harris_kernel, 0, &smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  fast_harris_kernel<<<grid, kThreads, smem, stream>>>(img, mask, h, w,
+                                                       threshold, s2, out);
+  return cudaGetLastError();
 }
 
 }  // namespace

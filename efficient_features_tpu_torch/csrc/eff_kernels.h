@@ -1,8 +1,9 @@
 // C ABI of the port's hand-written Hopper kernels.
 //
-// Each entry point launches one kernel on `stream` (a cudaStream_t passed as
-// void*), does not synchronise, allocates nothing, and returns
-// cudaGetLastError() right after the launch (0 on success).  Outputs and
+// Each entry point launches its kernel (K1 two, K6 three) on `stream` (a
+// cudaStream_t passed as void*), does not synchronise, allocates nothing,
+// and returns cudaGetLastError() right after the launch (0 on success).
+// Outputs and
 // inputs are device pointers to contiguous row-major tensors that the Python
 // wrappers (ops/detect_kernels.py, ops/window_kernels.py, ops/matcher.py,
 // ops/image.py) allocate and check.
@@ -14,21 +15,26 @@
 extern "C" {
 #endif
 
-// Largest nonmax radius the staged detect kernels' (K1, K7) disc table and
-// shared-memory plan cover (the detector default is 15).
-#define EFF_CELLS_MAX_RADIUS 48
+// Largest nonmax radius of the staged dense kernel K7, whose route serves
+// radius < 10.
+#define EFF_STAGED_MAX_RADIUS 9
 
-// K1: FAST-9 + Harris + disc NMS, reduced to 8-row x 1-col cells.
+// K1: FAST-9 + Harris + disc NMS, reduced to 8-row x 1-col cells, any
+// radius >= 1; two kernels on `stream`.
 // img: (h, w) uint8; mask: (h, w) uint8 ROI (nonzero = search here) or NULL
-// for none.  disc_wdx: host array of 2*(radius-1)+1 half-widths, entry i for
-// dy = i - (radius-1) (semantics.disc_row_extents).  Outputs are
-// (ceil(h/8), w): cell max response (-inf if no survivor), lowest global row
-// of a maximal survivor (INT32_MAX if none), survivor count.
+// for none.  disc_segs: DEVICE (4 * seg_groups, 4) int32, 16-byte aligned:
+// the open disc cut into segments (dy, dx0, dx1, 0) of at most 32 columns,
+// rows in the order dy = 0, -1, 1, -2, ..., padded with empty segments
+// (dx0 > dx1) to a multiple of 4 (ops/detect_kernels.disc_segments).
+// resp: (h, w) float32 scratch, left holding the masked response map.
+// Outputs are (ceil(h/8), w): cell max response (-inf if no survivor), lowest
+// global row of a maximal survivor (INT32_MAX if none), survivor count.
 int eff_fast_harris_nms_cells(const uint8_t* img, const uint8_t* mask, int h,
                               int w, int threshold, int radius,
-                              const int32_t* disc_wdx, float harris_s2,
-                              float* cellmax, int32_t* cellrow,
-                              int32_t* cellcnt, void* stream);
+                              const int32_t* disc_segs, int seg_groups,
+                              float harris_s2, float* resp, float* cellmax,
+                              int32_t* cellrow, int32_t* cellcnt,
+                              void* stream);
 
 // K2: intensity-centroid moments over the radius-15 U_MAX disc.
 // img: (h, w) uint8; ys, xs: (n,) int32.  out: (n, 2) int32 [m01, m10].
@@ -61,19 +67,24 @@ int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
 int eff_hs_hist(const uint8_t* patches, int n, const float* wcore,
                 float ori_scale, uint8_t* out, void* stream);
 
-// K6: best-2 Hamming search.  q: (n1, nbytes) and t: (n2, nbytes) uint8
-// descriptors, 16-byte aligned, nbytes 32 or 64; valid_q (n1,) and
-// valid_t (n2,) uint8 masks, or NULL for all valid.  Per query row:
-// best_idx (lowest index of the nearest train row), best and second
-// (int32; a pair with an invalid side counts 1 << 30, second is INT32_MAX
-// when n2 == 1).
+// K6: best-2 Hamming search; three kernels on `stream`.  q: (n1, nbytes)
+// and t: (n2, nbytes) uint8 descriptors, 16-byte aligned, nbytes 32 or 64;
+// valid_q (n1,) and valid_t (n2,) uint8 masks, or NULL for all valid.
+// split_len: train rows per block, a multiple of 128, at most 65536.
+// scratch: 16-byte aligned int32 array of
+//   ceil(n2 / 128) * 128 + ceil(n1 / 4) * 4 + 3 * ceil(n2 / split_len) * n1
+// entries (ops/matcher.knn2_plan).  Per query row: best_idx (lowest index of
+// the nearest train row), best and second (int32; a pair with an invalid
+// side counts 1 << 30, second is INT32_MAX when n2 == 1).
 int eff_knn2_hamming(const uint8_t* q, const uint8_t* valid_q, int n1,
                      const uint8_t* t, const uint8_t* valid_t, int n2,
-                     int nbytes, int32_t* best_idx, int32_t* best,
-                     int32_t* second, void* stream);
+                     int nbytes, int split_len, int32_t* scratch,
+                     int32_t* best_idx, int32_t* best, int32_t* second,
+                     void* stream);
 
 // K7: FAST-9 + Harris + disc NMS, dense.  img: (h, w) uint8; radius
-// 1..EFF_CELLS_MAX_RADIUS, disc_wdx as for K1.  out: (h, w) float32, the
+// 1..EFF_STAGED_MAX_RADIUS; disc_wdx: DEVICE array of 2*(radius-1)+1
+// half-widths, entry i for dy = i - (radius-1).  out: (h, w) float32, the
 // response of surviving border-valid corners, -inf elsewhere.
 int eff_fast_harris_nms(const uint8_t* img, int h, int w, int threshold,
                         int radius, const int32_t* disc_wdx, float harris_s2,
@@ -85,7 +96,7 @@ int eff_fast_harris(const uint8_t* img, int h, int w, int threshold,
                     float harris_s2, float* out, void* stream);
 
 // K9: disc NMS of a -inf-masked (h, w) float32 response, any radius >= 1.
-// disc_wdx: DEVICE array of 2*(radius-1)+1 half-widths, as for K1.
+// disc_wdx: DEVICE array of 2*(radius-1)+1 half-widths, as for K7.
 // out: (h, w) uint8 (a torch.bool tensor), 1 where center != -inf and
 // center >= every response in the open disc.
 int eff_radius_nms(const float* resp, int h, int w, int radius,

@@ -6,12 +6,16 @@ Counterparts of `efficient_features_tpu/ops/pallas_kernels.py`'s
 csrc/fast_harris.cu) and `radius_nms` (K9, csrc/radius_nms.cu).  Each
 wrapper runs its plain version (`*_ref`, built from `ops/detect.py`'s dense
 functions) for a CPU tensor and launches its CUDA kernel for a CUDA tensor;
-it never swaps one for the other.  `<wrapper>.launches` counts kernel
-launches.
+it never swaps one for the other.  `<wrapper>.launches` counts the
+wrapper's launches: one per call, also for K1, whose call runs two kernels
+(the masked response map, then the NMS and the cell reduction).
+
+K1 serves every nonmax radius >= 1: it keeps no ring of its tile in shared
+memory, its NMS reads the response map in device memory along the disc's
+segments (`disc_segments`).  K7 stages the tile plus its ring, a plan for
+the small radii of its route, radius < 10 (`STAGED_MAX_RADIUS`).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -19,7 +23,7 @@ from .. import _build
 from ..utils import semantics as S
 from . import detect as D
 
-MAX_RADIUS = 48   # EFF_CELLS_MAX_RADIUS in csrc/eff_kernels.h (K1, K7)
+STAGED_MAX_RADIUS = 9    # EFF_STAGED_MAX_RADIUS in csrc/eff_kernels.h (K7)
 
 
 def require_cuda(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -42,29 +46,45 @@ def _require_image(image: torch.Tensor) -> None:
         raise ValueError(f"image must be 2-D, got shape {tuple(image.shape)}")
 
 
-def _require_staged_radius(radius: int, kernel: str) -> None:
-    if not 1 <= radius <= MAX_RADIUS:
-        raise ValueError(f"the {kernel} kernel covers nonmax_radius "
-                         f"1..{MAX_RADIUS}, got {radius}")
-
-
-def _disc_table(radius: int):
-    """Host ctypes array of the disc half-widths, entry i for dy = i - R."""
-    extents = [wdx for _, wdx in S.disc_row_extents(radius)]
-    return (ctypes.c_int32 * len(extents))(*extents)
-
-
 _DEVICE_DISC_TABLES: dict = {}
 
 
 def _device_disc_table(radius: int, device: torch.device) -> torch.Tensor:
-    """The disc half-widths as an int32 tensor on `device`, made once per
-    (radius, device): a copy per call would sync the host."""
+    """The disc half-widths, entry i for dy = i - (radius - 1), as an int32
+    tensor on `device`, made once per (radius, device): a copy per call would sync the host."""
     key = (radius, device)
     if key not in _DEVICE_DISC_TABLES:
         _DEVICE_DISC_TABLES[key] = torch.tensor(
             [wdx for _, wdx in S.disc_row_extents(radius)],
             dtype=torch.int32, device=device)
+    return _DEVICE_DISC_TABLES[key]
+
+
+SEGMENT = 32          # K1: columns of a disc segment, one per lane of a warp
+SEGMENT_GROUP = 4     # K1: segments a warp reads between two votes
+
+
+def disc_segments(radius: int) -> list[tuple[int, int, int, int]]:
+    """The open NMS disc as K1 scans it: segments (dy, dx0, dx1, 0) of at
+    most SEGMENT columns, rows in the order dy = 0, -1, 1, -2, ... (a larger
+    neighbour is most likely near), each row left to right, padded with
+    empty segments (dx0 > dx1) to a multiple of SEGMENT_GROUP."""
+    extent = dict(S.disc_row_extents(radius))
+    order = [0] + [s * d for d in range(1, radius) for s in (-1, 1)]
+    segs = [(dy, dx0, min(dx0 + SEGMENT - 1, extent[dy]), 0)
+            for dy in order
+            for dx0 in range(-extent[dy], extent[dy] + 1, SEGMENT)]
+    segs += [(0, 1, 0, 0)] * (-len(segs) % SEGMENT_GROUP)
+    return segs
+
+
+def _device_disc_segments(radius: int, device: torch.device) -> torch.Tensor:
+    """`disc_segments` as an (n, 4) int32 tensor on `device`, made once per
+    (radius, device): a copy per call would sync the host."""
+    key = ("segments", radius, device)
+    if key not in _DEVICE_DISC_TABLES:
+        _DEVICE_DISC_TABLES[key] = torch.tensor(
+            disc_segments(radius), dtype=torch.int32, device=device)
     return _DEVICE_DISC_TABLES[key]
 
 
@@ -117,7 +137,8 @@ def fast_harris_nms_cells(image: torch.Tensor, threshold: int, radius: int,
     if image.device.type == "cpu":
         return fast_harris_nms_cells_ref(image, threshold, radius, mask)
     _require_image(image)
-    _require_staged_radius(radius, "cells")
+    if radius < 1:
+        raise ValueError(f"radius must be >= 1, got {radius}")
     h, w = image.shape
     mask_ptr = None
     if mask is not None:
@@ -132,12 +153,16 @@ def fast_harris_nms_cells(image: torch.Tensor, threshold: int, radius: int,
     cellmax = torch.empty((h8, w), dtype=torch.float32, device=dev)
     cellrow = torch.empty((h8, w), dtype=torch.int32, device=dev)
     cellcnt = torch.empty((h8, w), dtype=torch.int32, device=dev)
+    resp = torch.empty((h, w), dtype=torch.float32, device=dev)   # scratch
+    segs = _device_disc_segments(int(radius), dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.eff_fast_harris_nms_cells(
             image.data_ptr(), mask_ptr, h, w, int(threshold), int(radius),
-            _disc_table(radius), float(D.HARRIS_S2), cellmax.data_ptr(),
-            cellrow.data_ptr(), cellcnt.data_ptr(), stream_of(image))
+            segs.data_ptr(), segs.shape[0] // SEGMENT_GROUP,
+            float(D.HARRIS_S2), resp.data_ptr(),
+            cellmax.data_ptr(), cellrow.data_ptr(), cellcnt.data_ptr(),
+            stream_of(image))
         _build.check(rc, "fast_harris_nms_cells")
         fast_harris_nms_cells.launches += 1
     return cellmax, cellrow, cellcnt
@@ -167,14 +192,17 @@ def fast_harris_nms(image: torch.Tensor, threshold: int,
     if image.device.type == "cpu":
         return fast_harris_nms_ref(image, threshold, radius)
     _require_image(image)
-    _require_staged_radius(radius, "fast_harris_nms")
+    if not 1 <= radius <= STAGED_MAX_RADIUS:
+        raise ValueError(f"the fast_harris_nms kernel covers nonmax_radius "
+                         f"1..{STAGED_MAX_RADIUS}, got {radius}")
     h, w = image.shape
     out = torch.empty((h, w), dtype=torch.float32, device=image.device)
     lib = _build.library()
     with torch.cuda.device(image.device):
         rc = lib.eff_fast_harris_nms(
             image.data_ptr(), h, w, int(threshold), int(radius),
-            _disc_table(radius), float(D.HARRIS_S2), out.data_ptr(),
+            _device_disc_table(int(radius), image.device).data_ptr(),
+            float(D.HARRIS_S2), out.data_ptr(),
             stream_of(image))
         _build.check(rc, "fast_harris_nms")
         fast_harris_nms.launches += 1

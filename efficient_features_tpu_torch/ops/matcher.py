@@ -5,8 +5,12 @@ with cross check, and the knn-2 ratio test of sample_image_sequence.cpp:
 114-144).  Every public function reduces to `knn2_topk2`: for each query
 row, the lowest-index nearest train row, its distance and the second
 smallest distance.  A CPU tensor runs the plain version `knn2_topk2_ref`;
-a CUDA tensor launches K6 (csrc/knn2_hamming.cu), once forward for the
-best-2 and once in reverse (roles and masks swapped) for the cross check.
+a CUDA tensor launches K6 (csrc/knn2_hamming.cu: the 1-bit tensor-core
+product popc(q & t) over (query strip, train split) blocks, a packed-key
+best-2 fold in registers, then a merge of the splits), once forward for
+the best-2 and once in reverse (roles and masks swapped) for the cross
+check.  `knn2_plan` chooses the split; `knn2_split_merge_ref` is the plain
+form of the kernel's key and merge rules, for the tests.
 The tensor's device picks the route: the JAX package's `fused=` keyword,
 `EFF_TPU_FUSED_MATCH` and `EFF_TPU_MATCH_QB` have no counterpart.
 
@@ -35,6 +39,11 @@ from .hash_sift import full_f32_matmul
 BIG = 1 << 30                 # distance of a pair with an invalid side
 INT32_MAX = 2147483647        # second-best of a single train row
 KERNEL_BYTES = (32, 64)       # descriptor widths K6 takes (256, 512 bits)
+KERNEL_TILE = 128             # K6: query rows per block, train rows per tile
+KERNEL_BLOCKS = 16 * 132      # K6: blocks aimed at, 16 per SM of an H100
+KERNEL_MIN_TILES = 4          # K6: fewest train tiles in a split
+KERNEL_MAX_SPLIT = 1 << 16    # K6: a split's columns fit the key's low half
+KEY_INVALID = 1 << 14         # K6: high half of an invalid column's key
 _CHUNK_ELEMS = 1 << 26        # plain version: distance entries per chunk
 
 
@@ -105,11 +114,82 @@ def knn2_topk2_ref(desc_q: torch.Tensor, valid_q: torch.Tensor | None,
     return idx, best, second
 
 
+def knn2_plan(n1: int, n2: int) -> tuple[int, int]:
+    """(split_len, scratch_len) of a K6 call.  The grid is (query strips
+    of KERNEL_TILE rows, train splits of split_len rows); the split is cut
+    so that about KERNEL_BLOCKS blocks exist whatever the shape, each
+    with at least KERNEL_MIN_TILES tiles, and holds at most
+    KERNEL_MAX_SPLIT rows.  scratch_len counts the int32 entries of the
+    key constants, the query popcounts and the per-split partial results
+    (csrc/eff_kernels.h)."""
+    strips = -(-n1 // KERNEL_TILE)
+    tiles = -(-n2 // KERNEL_TILE)
+    want = max(1, -(-KERNEL_BLOCKS // strips))
+    per_split = max(-(-tiles // want), min(KERNEL_MIN_TILES, tiles))
+    per_split = min(per_split, KERNEL_MAX_SPLIT // KERNEL_TILE)
+    split_len = per_split * KERNEL_TILE
+    splits = -(-n2 // split_len)
+    return split_len, (tiles * KERNEL_TILE + -(-n1 // 4) * 4
+                       + 3 * splits * n1)
+
+
+def knn2_split_merge_ref(desc_q: torch.Tensor, valid_q: torch.Tensor | None,
+                         desc_t: torch.Tensor, valid_t: torch.Tensor | None,
+                         split_len: int):
+    """K6's rules in plain torch, for the tests: per split of `split_len`
+    train rows the two smallest keys
+        key = ((popc(t) - 2 popc(q & t)) << 16) + column in the split,
+    an invalid column keyed (KEY_INVALID << 16) + column and a missing one
+    INT32_MAX; the keys decoded to (distance, index, second distance); the
+    splits merged in ascending order, a strictly smaller distance winning;
+    then the query mask.  Equals `knn2_topk2_ref`."""
+    _check_pair(desc_q, desc_t)
+    n1, n2 = desc_q.shape[0], desc_t.shape[0]
+    dev = desc_q.device
+    bq = (unpack_bits_pm1(desc_q) > 0).to(torch.float32)
+    bt = (unpack_bits_pm1(desc_t) > 0).to(torch.float32)
+    pq = bq.sum(dim=1).to(torch.int64)
+    best = torch.full((n1,), INT32_MAX, dtype=torch.int64, device=dev)
+    second = best.clone()
+    idx = torch.zeros(n1, dtype=torch.int64, device=dev)
+    for c0 in range(0, n2, split_len):
+        c1 = min(c0 + split_len, n2)
+        with full_f32_matmul():
+            acc = (bq @ bt[c0:c1].T).to(torch.int64)
+        high = bt[c0:c1].sum(dim=1).to(torch.int64)
+        if valid_t is not None:
+            high = torch.where(valid_t[c0:c1].to(torch.bool), high,
+                               KEY_INVALID)
+        col = torch.arange(c1 - c0, dtype=torch.int64, device=dev)
+        key = (-2 << 16) * acc + ((high << 16) + col)[None, :]
+        none = torch.full((n1, 1), INT32_MAX, dtype=torch.int64, device=dev)
+        two = torch.sort(torch.cat([key, none], dim=1), dim=1).values[:, :2]
+        kb, ks = two[:, 0], two[:, 1]
+        be, se = kb >> 16, ks >> 16
+        bvalid = be < (KEY_INVALID >> 1)
+        d = torch.where(bvalid, pq + be, BIG)
+        j = torch.where(bvalid, c0 + (kb & 0xffff), 0)
+        d2 = torch.where(se >= 3 * (KEY_INVALID >> 1), INT32_MAX,
+                         torch.where(se >= (KEY_INVALID >> 1), BIG, pq + se))
+        wins = d < best
+        second = torch.where(wins, torch.minimum(best, d2),
+                             torch.minimum(second, d))
+        idx = torch.where(wins, j, idx)
+        best = torch.where(wins, d, best)
+    if valid_q is not None:
+        dead = ~valid_q.to(torch.bool)
+        best = torch.where(dead, BIG, best)
+        second = torch.where(dead, BIG if n2 >= 2 else INT32_MAX, second)
+    idx = torch.where(best == BIG, 0, idx)
+    return tuple(v.to(torch.int32) for v in (idx, best, second))
+
+
 def knn2_topk2(desc_q: torch.Tensor, valid_q: torch.Tensor | None,
                desc_t: torch.Tensor, valid_t: torch.Tensor | None):
     """Streaming best-2 Hamming search: (best_idx i32, best i32, second
     i32) per query row, see `knn2_topk2_ref`.  A CUDA tensor launches K6
-    (256- or 512-bit descriptors)."""
+    (256- or 512-bit descriptors): its three kernels in one call, the
+    distances on the tensor cores; `.launches` counts calls."""
     if desc_q.device.type == "cpu":
         return knn2_topk2_ref(desc_q, valid_q, desc_t, valid_t)
     _check_pair(desc_q, desc_t)
@@ -139,10 +219,13 @@ def knn2_topk2(desc_q: torch.Tensor, valid_q: torch.Tensor | None,
     if n1 == 0:
         return tuple(out)
     vq, vt = (None if m is None else m.data_ptr() for m in masks)
+    split_len, scratch_len = knn2_plan(n1, n2)
+    scratch = torch.empty(scratch_len, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.eff_knn2_hamming(desc_q.data_ptr(), vq, n1,
                                   desc_t.data_ptr(), vt, n2, nbytes,
+                                  split_len, scratch.data_ptr(),
                                   *(t.data_ptr() for t in out),
                                   stream_of(desc_q))
         _build.check(rc, "knn2_topk2")

@@ -4,7 +4,7 @@ Port of `efficient_features_tpu/pipeline.py` for BAD and HashSIFT.
 Keypoint slots: each pyramid level owns a fixed `quota` range of the output
 arrays (ORB geometric split); invalid slots are masked; slot order within a
 level is (response desc, index asc).  Everything runs eagerly on the input's
-device.  Per level on the cells route (nonmax_radius 10..48), the only host
+device.  Per level on the cells route (nonmax_radius >= 10), the only host
 sync is `select_topk_cells` reading whether a tie fallback is needed; the
 other routes read nothing back.
 """
@@ -114,18 +114,15 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
     The route follows the JAX package's `_detect_level` on every device (the
     kernel wrappers choose kernel or plain version from the tensor's
     device):
-      - 10 <= radius <= DK.MAX_RADIUS: K1, cells, with the mask;
-      - radius < 10, no mask: K7, dense suppressed map;
-      - radius < 10 with a mask, or radius > DK.MAX_RADIUS: K8, the mask,
-        K9.  Above DK.MAX_RADIUS the JAX package takes the cells kernel;
-        cells selection is by its contract the exact dense top-k, so this
-        route selects the same keypoints.  It is chosen by configuration:
-        K1's shared-memory plan covers radius 1..DK.MAX_RADIUS.
+      - radius >= 10: K1, cells, with the mask, then the cell-reduced
+        selection (`efficient_features_tpu/pipeline.py:109`);
+      - radius < 10, no mask: K7, dense suppressed map, flat top-k;
+      - radius < 10 with a mask: K8, the mask, K9, flat top-k.
     """
     h, w = img.shape
     radius = cfg.nonmax_radius
     if min(h, w) > 2 * S.HALF_PATCH_SIZE:
-        if 10 <= radius <= DK.MAX_RADIUS:
+        if radius >= 10:
             cm, crow, ccnt = DK.fast_harris_nms_cells(
                 img, cfg.fast_threshold, radius, lvl_mask)
             ys, xs, r, valid = ops_detect.select_topk_cells(

@@ -9,6 +9,10 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256:
     `samples.sample_common.roi_mask` (K1 with its mask input);
   - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
     K9, then the flat top-k sort of every level's dense map);
+  - `small_radius_nomask`: the `dac` call at nonmax_radius 5 without a mask
+    (K7, then the flat top-k sort);
+  - `large_radius`: the `dac` call at nonmax_radius 64 (K1, as at every
+    radius >= 10);
   - `fused_hs`: the `dac` call with `hs_fused=True` (the pyramid through
     K10 as everywhere, HashSIFT through the fused kernel K11 instead of
     K4 + K5);
@@ -55,11 +59,11 @@ def card() -> str:
 
 
 def port_kernel_names() -> frozenset:
-    """Names of the `__global__` functions in csrc/*.cu."""
+    """Names of the `__global__` functions in csrc/*.cu and *.cuh."""
     pattern = re.compile(
         r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
     csrc = Path(__file__).resolve().parent.parent / "csrc"
-    return frozenset(name for src in csrc.glob("*.cu")
+    return frozenset(name for src in csrc.glob("*.cu*")
                      for name in pattern.findall(src.read_text()))
 
 
@@ -130,6 +134,8 @@ def main() -> int:
                                  device="cuda", hs_fused=True)
     ef5 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=5,
                             descriptor_type="hash_sift_256", device="cuda")
+    ef64 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=64,
+                             descriptor_type="hash_sift_256", device="cuda")
     scene = torch.from_numpy(SC.tiled_scene(H, W, 2160, False)).to(dev)
     roi = torch.from_numpy(SC.roi_mask(H, W)).to(dev)
     batch = torch.stack([torch.roll(scene, (17 * i, 29 * i), (0, 1))
@@ -144,6 +150,9 @@ def main() -> int:
              "masked": lambda: ef.detect_and_compute_async(scene, mask=roi),
              "small_radius": lambda: ef5.detect_and_compute_async(scene,
                                                                   mask=roi),
+             "small_radius_nomask": lambda: ef5.detect_and_compute_async(
+                 scene),
+             "large_radius": lambda: ef64.detect_and_compute_async(scene),
              "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
              "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order))}

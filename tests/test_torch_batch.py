@@ -104,6 +104,23 @@ def test_batch_as_host_matches_single(images):
                                       feat.compute(images[i], k1))
 
 
+def test_batch_keypoints_static_properties_match_jax(images):
+    """`KeyPoints.max_size` and `.level_ranges` of the batch entry point
+    equal the JAX package's (static values, no tolerance)."""
+    from efficient_features_tpu import EfficientFeatures as JEF
+    kw = dict(descriptor_type="bad_256", **KW)
+    port = TEF(device="cpu", **kw).detect_and_compute_batch(images,
+                                                            as_host=True)
+    ref = JEF(**kw).detect_and_compute_batch(images, mesh=JSH.make_mesh(1),
+                                             as_host=True)
+    assert len(port) == len(ref) == 2
+    for (pk, _), (rk, _) in zip(port, ref):
+        assert pk.max_size == rk.max_size == pytest.approx(31 * 1.2 ** 2)
+        assert pk.level_ranges == rk.level_ranges
+        assert len(pk.level_ranges) == 3
+        assert pk.level_ranges[-1][1] == pk.capacity
+
+
 def test_batch_rejects_bad_input(images):
     feat = TEF(device="cpu", **KW)
     for bad in (images[0], images.astype(np.float32),

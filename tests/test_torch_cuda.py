@@ -82,11 +82,24 @@ def _budget(n_bytes: int) -> int:
     return int(2e-5 * n_bytes) + 1
 
 
+def dense_image():
+    """A scene tiled from small corner-rich tiles: many corners per disc."""
+    tile = make_test_image(50, 70, seed=4)
+    return np.tile(tile, (4, 4))
+
+
+def noise_image():
+    """Uniform noise: a large share of the pixels are FAST corners."""
+    return np.random.default_rng(12).integers(0, 256, (150, 210),
+                                              dtype=np.uint8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("radius", [1, 10, 15, 22])
+@pytest.mark.parametrize("radius", [1, 10, 15, 22, 48, 49, 64])
 def test_cells_kernel_matches_plain(dev, radius):
     for img in (make_test_image(200, 280, seed=33),
-                make_test_image(141, 203, seed=8), tie_image(), wrap_image()):
+                make_test_image(141, 203, seed=8), tie_image(), wrap_image(),
+                dense_image(), noise_image()):
         t = torch.from_numpy(img).to(dev)
         before = DK.fast_harris_nms_cells.launches
         got = DK.fast_harris_nms_cells(t, 20, radius)
@@ -195,7 +208,7 @@ def test_hash_sift_slice_on_the_card_matches_the_cpu(dev, descriptor_type):
 
 def _pool_descriptors(nbytes, n1, n2, seed):
     """Rows from a pool of 6 descriptors (ties everywhere), an exact
-    duplicate across K6's 256-row train tiles, n2 not a multiple of 256."""
+    duplicate across K6's 128-row train tiles and its splits."""
     rng = np.random.default_rng(seed)
     pool = rng.integers(0, 256, (6, nbytes), dtype=np.uint8)
     d1 = pool[rng.integers(0, 6, n1)]
@@ -207,21 +220,27 @@ def _pool_descriptors(nbytes, n1, n2, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbytes", [32, 64])
 @pytest.mark.parametrize("kind", ["ties", "random"])
-def test_knn2_kernel_matches_plain(dev, nbytes, kind):
+@pytest.mark.parametrize("n1,n2", [(700, 1101), (64, 64), (129, 257),
+                                   (127, 255), (300, 5000), (40, 20)])
+def test_knn2_kernel_matches_plain(dev, nbytes, kind, n1, n2):
+    """K6 against its plain version: several train splits (1101, 5000), one
+    block (64 x 64), one off a 128-row tile on both sides, fewer train rows
+    than a tile; unmasked, masked, no valid train row, no valid query; the
+    same bits on a second run."""
     from efficient_features_tpu_torch.ops import matcher as TM
     if kind == "ties":
-        d1, d2 = _pool_descriptors(nbytes, 700, 1101, seed=nbytes)
+        d1, d2 = _pool_descriptors(nbytes, n1, n2, seed=nbytes)
     else:
         rng = np.random.default_rng(nbytes)
-        d1 = rng.integers(0, 256, (700, nbytes), dtype=np.uint8)
-        d2 = rng.integers(0, 256, (1101, nbytes), dtype=np.uint8)
-        d1[::2] = d2[:350]
+        d1 = rng.integers(0, 256, (n1, nbytes), dtype=np.uint8)
+        d2 = rng.integers(0, 256, (n2, nbytes), dtype=np.uint8)
+        d1[::2] = d2[:len(d1[::2])]
     rng = np.random.default_rng(1)
-    v1 = torch.from_numpy(rng.random(700) > 0.2).to(dev)
-    v2 = torch.from_numpy(rng.random(1101) > 0.2).to(dev)
+    v1 = torch.from_numpy(rng.random(n1) > 0.2).to(dev)
+    v2 = torch.from_numpy(rng.random(n2) > 0.2).to(dev)
     v1[5] = True
     q, t = torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev)
-    for vq, vt in ((None, None), (v1, v2),
+    for vq, vt in ((None, None), (v1, v2), (torch.zeros_like(v1), v2),
                    (v1, torch.zeros_like(v2))):   # no valid pair at all
         before = TM.knn2_topk2.launches
         got = TM.knn2_topk2(q, vq, t, vt)
@@ -229,6 +248,8 @@ def test_knn2_kernel_matches_plain(dev, nbytes, kind):
         want = TM.knn2_topk2_ref(q, vq, t, vt)
         for a, b in zip(got, want):
             assert a.dtype == torch.int32 and torch.equal(a, b)
+        for a, b in zip(got, TM.knn2_topk2(q, vq, t, vt)):
+            assert torch.equal(a, b)
     assert int(got[1][5]) == TM.BIG and int(got[0][5]) == 0
     for fn, args in ((TM.match, (q, t)), (TM.knn2_ratio_match, (q, t)),
                      (TM.knn2_ratio_match_masked, (q, v1, t, v2))):
@@ -318,10 +339,10 @@ def test_radius_nms_kernel_matches_plain(dev, radius):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("radius", [10, 15, 22, 48])
+@pytest.mark.parametrize("radius", [10, 15, 22, 48, 49, 64])
 def test_masked_cells_kernel_matches_plain(dev, radius):
     from efficient_features_tpu_torch.samples.sample_common import roi_mask
-    for img in _detect_images()[:3]:
+    for img in _detect_images()[:3] + (dense_image(), noise_image()):
         h, w = img.shape
         t = torch.from_numpy(img).to(dev)
         rnd = np.random.default_rng(radius).random((h, w)) < 0.5

@@ -4,8 +4,9 @@ the ROI mask and every nonmax_radius.
 On the CPU the kernel wrappers run their plain versions; the JAX kernels run
 in Pallas interpret mode, as `tests/test_kernels.py` runs them.  Tolerances:
   - the plain versions of K7 (`fast_harris_nms`), K8 (`fast_harris`), K9
-    (`radius_nms`) and masked K1 (`fast_harris_nms_cells`) equal the Pallas
-    kernels exactly: FAST, Harris and the NMS are exact math in both;
+    (`radius_nms`) and K1 (`fast_harris_nms_cells`, masked, and at radius 49
+    and 64) equal the Pallas kernels exactly: FAST, Harris and the NMS are
+    exact math in both;
   - `detect` / `detect_and_compute` slots (x, y, octave, size, response,
     valid, count) bit-exact, angles within 1e-3 degrees (f32 atan2 ULPs),
     descriptors within int(2e-5 * bytes) + 1 (BAD) and int(1e-4 * bytes) + 1
@@ -128,6 +129,82 @@ def test_masked_cells_plain_matches_pallas(which, mask_kind, radius):
                                           torch.ones(h, w, dtype=torch.bool))
     for a, b in zip(everywhere, unmasked):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("radius", [49, 64])
+def test_large_radius_cells_plain_matches_pallas(radius, masked):
+    """The cells kernel serves every radius >= 10, as in the JAX package:
+    its plain version against the Pallas kernel beyond radius 48."""
+    img = IMAGES["scene"]()
+    h, w = img.shape
+    mask = roi_mask(h, w) != 0 if masked else None
+    want = [np.asarray(a)[:-(-h // 8), :w]
+            for a in PK.fast_harris_nms_cells(
+                jnp.asarray(img), 20, radius,
+                None if mask is None else jnp.asarray(mask))]
+    got = DK.fast_harris_nms_cells(_t(img), 20, radius,
+                                   None if mask is None else _t(mask))
+    for g, e in zip(got, want):
+        assert tuple(g.shape) == e.shape and g.numpy().dtype == e.dtype
+        np.testing.assert_array_equal(g.numpy(), e)
+    assert (want[2] > 0).any()
+
+
+@pytest.mark.parametrize("radius", [1, 2, 10, 15, 17, 48, 64, 128])
+def test_disc_segments_cover_the_disc(radius):
+    """The segment table the cells kernel scans: every pixel of the open
+    disc (dx^2 + dy^2 < radius^2, `disc_row_extents`) exactly once, at most
+    a warp's width per segment, rows nearest first, padded with empty
+    segments to whole groups."""
+    segs = DK.disc_segments(radius)
+    assert len(segs) % DK.SEGMENT_GROUP == 0
+    seen = set()
+    for dy, dx0, dx1, pad in segs:
+        assert dx1 - dx0 + 1 <= DK.SEGMENT and pad == 0
+        for dx in range(dx0, dx1 + 1):
+            assert (dy, dx) not in seen
+            seen.add((dy, dx))
+    assert seen == {(dy, dx) for dy, wdx in TS.disc_row_extents(radius)
+                    for dx in range(-wdx, wdx + 1)}
+    assert seen == {(dy, dx) for dy in range(-radius, radius + 1)
+                    for dx in range(-radius, radius + 1)
+                    if dx * dx + dy * dy < radius * radius}
+    rows = [s[0] for s in segs if s[1] <= s[2]]
+    assert rows[0] == 0 and [abs(r) for r in rows] == sorted(
+        abs(r) for r in rows)
+
+
+@pytest.mark.parametrize("radius", [10, 49, 64])
+def test_detect_level_takes_the_cells_route(radius, monkeypatch):
+    """Every nonmax_radius >= 10 goes through the cells wrapper and the
+    cell-reduced selection, never through K8 -> K9 and the flat top-k."""
+    calls = {"cells": 0, "select": 0}
+
+    def counting(fn, key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a radius >= 10 must not take this route")
+
+    monkeypatch.setattr(DK, "fast_harris_nms_cells",
+                        counting(DK.fast_harris_nms_cells, "cells"))
+    monkeypatch.setattr(TD, "select_topk_cells",
+                        counting(TD.select_topk_cells, "select"))
+    for name in ("fast_harris", "fast_harris_nms", "radius_nms"):
+        monkeypatch.setattr(DK, name, forbidden)
+    monkeypatch.setattr(TD, "select_topk", forbidden)
+    cfg = TP.FeatureConfig(nfeatures=300, nonmax_radius=radius,
+                           descriptor_type="bad_256")
+    img = _t(make_test_image(200, 280, seed=7))
+    ys, xs, r, ang, valid = TP._detect_level(img, 100, cfg)
+    assert calls == {"cells": 1, "select": 1}
+    assert valid.any() and ys.shape == (100,)
+    slots = TP.detect(img, cfg, _t(roi_mask(200, 280)))
+    assert calls == {"cells": 9, "select": 9} and int(slots["count"]) > 0
 
 
 @pytest.mark.parametrize("hw", [(200, 280), (141, 203), (97, 301),

@@ -191,3 +191,80 @@ def test_edge_cases():
         TM.match(_t(d1), torch.zeros((3, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="uint8"):
         TM.match(_t(d1).to(torch.int32), _t(d1))
+
+
+# -- K6's split, packed-key and merge rules, in plain torch ------------------
+
+
+@pytest.mark.parametrize("nbytes", [32, 64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kind,n2,split", [
+    ("ties", 300, 128),      # ties and duplicates across three splits
+    ("ties", 257, 128),      # n2 one past a split: a split of one row
+    ("ties", 255, 128),      # one short of it
+    ("random", 256, 128),    # exactly two splits
+    ("random", 1, 128),      # one train row: second is INT32_MAX
+    ("random", 700, 256)])
+def test_split_merge_rule_equals_plain(kind, n2, split, masked, nbytes):
+    """`knn2_split_merge_ref`, the kernel's rules, against the plain version:
+    (idx, best, second) equal on every row, rows with no valid pair and an
+    invalid query included."""
+    d1, d2 = descriptors(kind, nbytes, 90, n2, seed=n2 + nbytes)
+    if kind == "ties" and n2 > 140:
+        d2[n2 - 1] = d2[3]               # a duplicate in the first and last
+    v1, v2 = masks(90, n2, seed=n2) if masked else (None, None)
+    args = (_t(d1), None if v1 is None else _t(v1),
+            _t(d2), None if v2 is None else _t(v2))
+    want = TM.knn2_topk2_ref(*args)
+    got = TM.knn2_split_merge_ref(*args, split)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    if masked:                           # no valid train row at all
+        dead = (args[0], args[1], args[2], torch.zeros(n2, dtype=torch.bool))
+        got = TM.knn2_split_merge_ref(*dead, split)
+        for g, w in zip(got, TM.knn2_topk2_ref(*dead)):
+            assert torch.equal(g, w)
+        assert got[0].tolist() == [0] * 90 and got[1].tolist() == [BIG] * 90
+
+
+@pytest.mark.parametrize("nbytes", [32, 64])
+@pytest.mark.parametrize("fn", ["match", "knn2", "knn2_masked"])
+def test_split_merge_rule_equals_jax_dense(fn, nbytes, monkeypatch):
+    """The public functions over the kernel's rules (a 128-row split, so
+    1100 train rows make nine splits) against the JAX dense path."""
+    d1, d2 = descriptors("ties", nbytes, 200, 1100, seed=5 * nbytes)
+    v1, v2 = masks(200, 1100, seed=nbytes)
+    v1[:3] = False
+    monkeypatch.setattr(
+        TM, "knn2_topk2",
+        lambda q, vq, t, vt: TM.knn2_split_merge_ref(q, vq, t, vt, 128))
+    j1, j2 = jnp.asarray(d1), jnp.asarray(d2)
+    if fn == "match":
+        port = TM.match(_t(d1), _t(d2), True)
+        ref = JM.match(j1, j2, True, fused=False)
+    elif fn == "knn2":
+        port = TM.knn2_ratio_match(_t(d1), _t(d2), 0.8)
+        ref = JM.knn2_ratio_match(j1, j2, 0.8, fused=False)
+    else:
+        port = TM.knn2_ratio_match_masked(_t(d1), _t(v1), _t(d2), _t(v2), 0.8)
+        ref = JM.knn2_ratio_match_masked(j1, jnp.asarray(v1), j2,
+                                         jnp.asarray(v2), 0.8, fused=False)
+    _eq(port, ref)
+
+
+@pytest.mark.parametrize("n1,n2", [(40000, 40000), (1000, 40000),
+                                   (3000, 3000), (64, 64), (5, 1),
+                                   (10, 200000), (40000, 39999)])
+def test_knn2_plan(n1, n2):
+    """The split is whole tiles, fits the key's 16-bit column field, covers
+    the train axis, and the scratch holds what the kernels write."""
+    split, scratch = TM.knn2_plan(n1, n2)
+    tile = TM.KERNEL_TILE
+    assert split % tile == 0 and tile <= split <= TM.KERNEL_MAX_SPLIT
+    splits = -(-n2 // split)
+    assert (splits - 1) * split < n2 <= splits * split
+    assert scratch == (-(-n2 // tile) * tile + -(-n1 // 4) * 4
+                       + 3 * splits * n1)
+    blocks = -(-n1 // tile) * splits
+    if n1 * n2 >= 1000 * 40000:          # a large call fills the card
+        assert blocks >= 4 * 132

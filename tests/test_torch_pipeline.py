@@ -101,6 +101,63 @@ def test_detect_small_radius_and_tiny_levels_match_jax():
     assert tkps.count == int(want["count"]) > 0
 
 
+def _same_static(port, ref) -> None:
+    """`KeyPoints.max_size` and `.level_ranges`: static properties of the
+    configuration and the image shape, equal to the JAX `KeyPoints`' (no
+    tolerance: floats from the same expressions, integers)."""
+    assert isinstance(port.max_size, float)
+    assert port.max_size == ref.max_size
+    assert isinstance(port.level_ranges, tuple)
+    assert port.level_ranges == ref.level_ranges
+    assert port.level_ranges[-1][1] == port.capacity
+
+
+@pytest.mark.parametrize("entry", ["detect", "detect_and_compute"])
+def test_keypoints_static_properties_match_jax(scene, entry):
+    if entry == "detect":          # the configuration of the test above
+        img = make_test_image(120, 160, seed=3)
+        cfg = dict(nfeatures=300, nonmax_radius=5, nlevels=6,
+                   scale_factor=1.5)
+        port = TEF(device="cpu", **cfg).detect(img)
+        ref = JEF(**cfg).detect(img)
+        assert port.max_size == pytest.approx(31 * 1.5 ** 5)
+    else:
+        cfg = dict(nfeatures=500, descriptor_type="bad_256")
+        port = TEF(device="cpu", **cfg).detect_and_compute(scene)[0]
+        ref = JEF(**cfg).detect_and_compute(scene)[0]
+        assert port.max_size == pytest.approx(31 * 1.2 ** 7)
+    _same_static(port, ref)
+    assert len(port.level_ranges) == cfg.get("nlevels", 8)
+
+
+@pytest.mark.parametrize("scale_factor,nlevels,first_level",
+                         [(1.2, 8, 0), (1.5, 4, 1), (1.1, 2, 0)])
+def test_keypoints_static_properties_follow_the_configuration(
+        scene, scale_factor, nlevels, first_level):
+    """No detection on the JAX side: its `KeyPoints` takes the same two
+    values from `pipeline.level_slot_ranges` and the configuration."""
+    kw = dict(nfeatures=200, scale_factor=scale_factor, nlevels=nlevels,
+              first_level=first_level, descriptor_type="bad_256")
+    roi = np.full(scene.shape, 255, np.uint8)
+    for port in (TEF(device="cpu", **kw).detect(scene),
+                 TEF(device="cpu", **kw).detect(scene, mask=roi)):
+        assert port.level_ranges == JP.level_slot_ranges(
+            JP.FeatureConfig(**kw), *scene.shape)
+        assert port.max_size == JEF(**kw)._max_kp_size()
+        assert len(port.level_ranges) == nlevels - first_level
+
+
+def test_user_keypoints_have_no_static_properties(scene):
+    from efficient_features_tpu_torch.api import KeyPoints
+    tef = TEF(nfeatures=200, descriptor_type="bad_256", device="cpu")
+    kps = tef.detect(scene)
+    user = KeyPoints(dict(kps._slots))
+    assert user.max_size is None and user.level_ranges is None
+    # compute() takes either and gives the same rows
+    np.testing.assert_array_equal(tef.compute(scene, user),
+                                  tef.compute(scene, kps))
+
+
 BAD_CONFIGS = [
     dict(nfeatures=0), dict(nlevels=0), dict(scale_factor=1.0),
     dict(first_level=8), dict(first_level=-1), dict(fast_threshold=0),
