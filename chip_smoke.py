@@ -14,9 +14,12 @@ moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
 zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
 2160x3840 frame, odd sizes, an upscale, 16x20 and 8x8 destinations, noise
 and all-255), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
-within K5's tolerance of its plain version, on detected keypoints, on
-sizes 31-300 px, on the image corners, on a saturated 0/255 edge image;
-invalid slots give zero rows; deterministic) and K6 best-2 Hamming search
+both within K5's tolerance of their plain versions, on detected keypoints,
+on sizes 31-300 px, on the image corners, on a saturated 0/255 edge image,
+and at the edges of the two kernels' 8-patch blocks: n = 1, one off a
+multiple of 8, empty patches and invalid slots at every position of a
+block; invalid slots and all-zero patches give zero rows; deterministic)
+and K6 best-2 Hamming search
 (bit-identical at 40000 x 40000, 256 and 512 bits, unmasked and about 20%
 masked on each side, on a tie-heavy pool with a duplicate across train
 tiles and n2 not a multiple of the tile, rows with no valid pair, at
@@ -132,6 +135,10 @@ PEAK_B1_TC = 8 * PEAK_INT8_TC
 # table of arithmetic instruction throughput for compute capability 9.0) x
 # 132 SMs x 1.98 GHz, the clock behind the datasheet's 67 TFLOP/s.
 PEAK_INT32 = 64 * 132 * 1.98e9
+# K5 / K11: CUDA-core ops per patch that is not all zero (see `_work`), and
+# the bytes of the histogram plan (ops/hash_sift.hist_plan) read per call.
+HS_PATCH_OPS = 40.0 * 900 + 2.0 * 5202 + 6.0 * 128
+HS_PLAN_BYTES = 16 * 6 * 4 + 2601 * 4
 REPO = Path(__file__).resolve().parent
 
 
@@ -279,8 +286,13 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
       K3  the integral image (2 adds per pixel) and per bit two box sums
           (3 adds each) and the weighted compare (3);
       K4  per sample the affine (4) and the bilinear lerp (8);
-      K5  per pixel gradients, atan2, magnitude and votes (~40), per bin a
-          weighted sum over <= 15x15 pixels (2 x 225);
+      K5  per patch 1024 B read and 128 B written, and the plan and its
+          weights (10788 B) once per call; per patch that is not all zero
+          (an all-zero patch has a zero row without arithmetic) 40 per
+          interior pixel for gradients, magnitude, atan2 and votes, 2 per
+          weighted vote (5202: 2601 (pixel, spatial bin) pairs, two votes
+          each; a multiply and an add) and 6 per output bin for the two
+          norms and the quantisation (HS_PATCH_OPS);
       K6  what any exact best-2 search needs: the n1 * n2 * nbits bit
           products, 2 ops each, at the 1-bit tensor-core rate (the operand
           type of the kernel; PEAK_B1_TC), and one int32 min per distance
@@ -290,8 +302,10 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
       K10 source and destination pixels once and the six int32 tables; per
           destination pixel 6 multiplies, 3 adds, the rounding add and the
           shift (11);
-      K11 the image once, 17 B of keypoint per slot and the 128 B row; K4's
-          affine and lerp per sample plus K5's work per patch."""
+      K11 the image once, 17 B of keypoint per slot, the 128 B row and
+          the plan once; per valid slot K4's affine and lerp per sample,
+          and K5's work for each patch that is not all zero (an invalid
+          slot costs only its bytes)."""
     if name in ("fast_harris_nms_cells", "fast_harris_nms"):
         from efficient_features_tpu_torch.ops import detect_kernels as DK
         h, w = args[0].shape
@@ -327,14 +341,18 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         return img.numel() + 17 * n + 1024 * n, 12.0 * 1024 * n, 0.0, 0.0
     if name == "hs_hist_from_patches":
         n = args[0].shape[0]
-        return 1152 * n, (40.0 * 1024 + 2 * 225 * 128) * n, 0.0, 0.0
+        live = n - empty_patches(args[0])
+        return 1152 * n + HS_PLAN_BYTES, HS_PATCH_OPS * live, 0.0, 0.0
     if name == "resize_u8_kernel":
         src, (h, w) = args
         return src.numel() + h * w + 12 * (h + w), 11.0 * h * w, 0.0, 0.0
     if name == "hs_desc_windows":
+        from efficient_features_tpu_torch.ops import window_kernels as WK
         img, n = args[0], args[1].shape[0]
-        return (img.numel() + 17 * n + 128 * n,
-                (12.0 * 1024 + 40.0 * 1024 + 2 * 225 * 128) * n, 0.0, 0.0)
+        valid = int(args[5].sum())
+        live = n - empty_patches(WK.warp_patches_windows_ref(*args))
+        return (img.numel() + 17 * n + 128 * n + HS_PLAN_BYTES,
+                12.0 * 1024 * valid + HS_PATCH_OPS * live, 0.0, 0.0)
     if name == "knn2_topk2":
         q, vq, t, vt = args
         n1, n2, nb = q.shape[0], t.shape[0], q.shape[1]
@@ -342,6 +360,27 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         return ((n1 + n2) * nb + masks + 12 * n1, 0.0, 1.0 * n1 * n2,
                 2.0 * n1 * n2 * 8 * nb)
     raise KeyError(name)
+
+
+def empty_patches(patches: torch.Tensor) -> int:
+    """All-zero rows of (N, 1024) u8 patches."""
+    return int((patches == 0).all(dim=1).sum())
+
+
+def block_edge_valid(n: int) -> np.ndarray:
+    """Valid flags that put empty slots at the edges of the histogram
+    kernels' 8-slot blocks: blocks 0-7 each lack the slot at their own
+    position, blocks 8-15 hold only that slot, block 16 is all invalid,
+    the rest valid (tests/test_torch_cuda.py's block-edge test)."""
+    valid = np.ones(n, bool)
+    for b in range(min(8, n // 8)):
+        valid[8 * b + b] = False
+    for b in range(8, min(16, n // 8)):
+        valid[8 * b:8 * b + 8] = False
+        valid[8 * b + b - 8] = True
+    if n >= 136:
+        valid[128:136] = False
+    return valid
 
 
 def _disc_pixels(radius: int) -> float:
@@ -812,9 +851,12 @@ def main() -> int:
         fail(f"K5 is not deterministic: {int((rows != again).sum())} bytes "
              "changed between two runs")
     errs["hs_hist_from_patches"] = max_abs_err(rows, r_ref)
-    print(f"K5 {N_KP} patches ({len(zero_rows)} all-zero): max |diff| {dmax},"
-          f" differing share {dshare:.3e}; zero patches give zero rows; two "
-          "runs bit-identical")
+    print(f"K5 {N_KP} patches ({empty_patches(patches)} all-zero): max |diff| "
+          f"{dmax}, differing share {dshare:.3e}, "
+          f"{int((rows != r_ref).sum())} of {rows.numel()} entries differ "
+          "from plain (5 with the earlier one-block-per-patch kernel); zero "
+          "patches give zero rows; two runs bit-identical; blocks of 8 "
+          f"patches per SM (K5, K11): {WK.hs_blocks_per_sm()}")
 
     # -- projection: full f32 whatever the caller's matmul precision -------
     kvalid_t = wkp[4]
@@ -841,10 +883,13 @@ def main() -> int:
               f"{int((tf32 != want).sum())} bytes")
 
     # -- K11: fused HashSIFT = K5 on K4's patches, bit for bit ---------------
-    def check_fused(label, image, kp):
+    def check_fused(label, image, kp, quiet=False):
+        """K11 against K5 on K4's patches (bytes), both against their plain
+        versions (HIST_SHARE), zero rows for invalid slots and all-zero
+        patches, the same bytes on a second run of each."""
         rows = WK.hs_desc_windows(image, *kp, 1.0)
-        staged = WK.hs_hist_from_patches(
-            WK.warp_patches_windows(image, *kp, 1.0))
+        patches = WK.warp_patches_windows(image, *kp, 1.0)
+        staged = WK.hs_hist_from_patches(patches)
         torch.cuda.synchronize()
         if not torch.equal(rows, staged):
             bad = (rows != staged).nonzero()[:5].tolist()
@@ -852,19 +897,28 @@ def main() -> int:
                  f"(row, entry) {bad}")
         ref = WK.hs_desc_windows_ref(image, *kp, 1.0)
         dmax, dshare = u8_diff(rows, ref)
-        if dmax > 1 or dshare >= HIST_SHARE:
-            fail(f"K11 {label}: rows differ from plain: max {dmax}, share "
-                 f"{dshare}")
-        if int(rows[~kp[4]].to(torch.int32).sum()) != 0:
+        d5max, d5share = u8_diff(staged, WK.hs_hist_from_patches_ref(patches))
+        if max(dmax, d5max) > 1 or max(dshare, d5share) >= HIST_SHARE:
+            fail(f"K11 / K5 {label}: rows differ from plain: max {dmax} / "
+                 f"{d5max}, share {dshare} / {d5share}")
+        empty = (patches == 0).all(dim=1)
+        if int(rows[~kp[4]].to(torch.int32).sum()) != 0 or \
+                not bool(empty[~kp[4]].all()):
             fail(f"K11 {label}: an invalid slot gave a nonzero row")
-        if not torch.equal(rows, WK.hs_desc_windows(image, *kp, 1.0)):
-            fail(f"K11 {label}: two runs differ")
+        if int(staged[empty].to(torch.int32).sum()) != 0:
+            fail(f"K5 {label}: an all-zero patch gave a nonzero row")
+        if not torch.equal(rows, WK.hs_desc_windows(image, *kp, 1.0)) or \
+                not torch.equal(staged, WK.hs_hist_from_patches(patches)):
+            fail(f"K11 / K5 {label}: two runs differ")
         errs["hs_desc_windows"] = max(errs["hs_desc_windows"],
                                       max_abs_err(rows, ref))
-        print(f"K11 {label}: {rows.shape[0]} slots "
-              f"({int((~kp[4]).sum())} invalid, zero rows): bytes identical "
-              f"to K5(K4(.)); against plain max |diff| {dmax}, differing "
-              f"share {dshare:.3e}; two runs bit-identical")
+        if not quiet:
+            print(f"K11 {label}: {rows.shape[0]} slots "
+                  f"({int((~kp[4]).sum())} invalid, {int(empty.sum())} "
+                  f"all-zero patches, zero rows): bytes identical to "
+                  f"K5(K4(.)); against plain max |diff| {dmax} (K5 {d5max}),"
+                  f" differing share {dshare:.3e} (K5 {d5share:.3e}); two "
+                  "runs of each bit-identical")
 
     det = P.detect(img, P.FeatureConfig(nfeatures=NFEATURES))
     check_fused("detected keypoints at size 31 on the blurred level 0",
@@ -881,6 +935,35 @@ def main() -> int:
     edge = [torch.from_numpy(a).to(dev) for a in edge_case()]
     check_fused("saturated 0/255 edge image", edge[0], edge[1:])
     del det
+
+    # -- K5 / K11 at the edges of their 8-patch blocks -----------------------
+    def block_case(n, image, seed):
+        """n keypoints of size 31 on `image` with `block_edge_valid(n)`, and
+        one valid keypoint off the image (an all-zero patch) when n > 1."""
+        r = np.random.default_rng(seed)
+        h, w = image.shape
+        x = r.uniform(0, w - 1, n).astype(np.float32)
+        y = r.uniform(0, h - 1, n).astype(np.float32)
+        if n > 1:
+            x[n // 2] = -500.0
+        a = r.uniform(0, 360, n).astype(np.float32)
+        a[::5] = -1.0
+        return [torch.from_numpy(v).to(dev) for v in (
+            x, y, np.full(n, 31.0, np.float32), a, block_edge_valid(n))]
+
+    sizes = (1, 7, 9, 999, 1001, 147)
+    for n in sizes:
+        check_fused(f"block edge n={n}", img, block_case(n, img, n),
+                    quiet=True)
+    check_fused("block edge n=147 on the 0/255 edge image", edge[0],
+                block_case(147, edge[0], 147), quiet=True)
+    print(f"K5, K11 at the edges of their 8-patch blocks: n = {sizes} on the "
+          "tiled scene and 147 on the saturated 0/255 edge image (empty "
+          "patches / invalid slots at every position of a block, a block of "
+          "only those, blocks with one live patch, a valid keypoint off the "
+          "image): K11 = K5(K4(.)) byte for byte, both within HIST_SHARE of "
+          "plain, zero rows where the patch is empty or the slot invalid, "
+          "two runs bit-identical")
 
     stamp("K6 against plain")
     # -- K6: best-2 Hamming search, bit-identical -----------------------------
@@ -1480,9 +1563,17 @@ def main() -> int:
         times[name] = (time_ms(lambda: replay(fn)),
                        time_ms(lambda: replay(ref), iters=plain_iters,
                                warmup=1))
+        empty = ""
+        if name == "hs_hist_from_patches":
+            empty = (f" ({sum(empty_patches(a[0]) for a, _ in calls)} of "
+                     f"{sum(a[0].shape[0] for a, _ in calls)} patches all "
+                     "zero)")
+        elif name == "hs_desc_windows":
+            empty = (f" ({sum(int((~a[5]).sum()) for a, _ in calls)} of "
+                     f"{sum(a[5].shape[0] for a, _ in calls)} slots invalid)")
         print(f"time {name}: {len(calls)} launches of the first main-path "
-              f"call that ran it, kernel {times[name][0]:.3f} ms, plain "
-              f"{times[name][1]:.3f} ms [{hw}]")
+              f"call that ran it{empty}, kernel {times[name][0]:.3f} ms, "
+              f"plain {times[name][1]:.3f} ms [{hw}]")
 
     for label, name, calls in (
             ("masked, config (a)", "fast_harris_nms_cells",

@@ -60,12 +60,15 @@ int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
                      const float* ky, const float* cos_s, const float* sin_s,
                      const uint8_t* valid, int n, uint8_t* out, void* stream);
 
-// K5: HashSIFT histogram.  patches: (n, 1024) uint8; wcore: (900, 16)
-// float32 core spatial weights (ops/hash_sift.spatial_weight_core);
-// ori_scale: orientation bins per radian as float32.  out: (n, 128) uint8,
-// orientation-major e[o*16 + rc].
-int eff_hs_hist(const uint8_t* patches, int n, const float* wcore,
-                float ori_scale, uint8_t* out, void* stream);
+// K5: HashSIFT histogram.  patches: (n, 1024) uint8, 8-byte aligned;
+// plan: (16, 6) int32 and wpack: (2601,) float32, the spatial bins and
+// their weights in walk order (ops/hash_sift.hist_plan); ori_scale:
+// orientation bins per radian as float32.  out: (n, 128) uint8,
+// orientation-major e[o*16 + rc], 8-byte aligned; an all-zero patch gives
+// a zero row.
+int eff_hs_hist(const uint8_t* patches, int n, const int32_t* plan,
+                const float* wpack, float ori_scale, uint8_t* out,
+                void* stream);
 
 // K6: best-2 Hamming search; three kernels on `stream`.  q: (n1, nbytes)
 // and t: (n2, nbytes) uint8 descriptors, 16-byte aligned, nbytes 32 or 64;
@@ -112,14 +115,20 @@ int eff_resize_u8(const uint8_t* src, int sh, int sw, const int32_t* y0,
                   const int32_t* x1, const int32_t* wx1, uint8_t* dst, int h,
                   int w, void* stream);
 
-// K11: fused HashSIFT, K5 applied to K4's patch on chip.  Inputs as K4,
-// wcore and ori_scale as K5.  out: (n, 128) uint8, orientation-major;
-// invalid slots get zero rows.  Rows equal eff_hs_hist(eff_warp_patches(.))
-// byte for byte.
+// K11: fused HashSIFT, K5 applied to K4's patch on chip.  Inputs as K4;
+// plan, wpack and ori_scale as K5.  out: (n, 128) uint8, orientation-major,
+// 8-byte aligned; invalid slots get zero rows.  Rows equal
+// eff_hs_hist(eff_warp_patches(.)) byte for byte.
 int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
                 const float* ky, const float* cos_s, const float* sin_s,
-                const uint8_t* valid, int n, const float* wcore,
-                float ori_scale, uint8_t* out, void* stream);
+                const uint8_t* valid, int n, const int32_t* plan,
+                const float* wpack, float ori_scale, uint8_t* out,
+                void* stream);
+
+// Blocks of K5 / K11 (8 patches each) that one SM of the current device
+// holds at once, with the shared memory carveout the launches ask for.
+int eff_hs_hist_blocks_per_sm(int* blocks);
+int eff_hs_desc_blocks_per_sm(int* blocks);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

@@ -3,9 +3,9 @@
 //
 // K11 is K5 applied to K4's patch without the patch leaving the chip, and
 // its rows must equal K5(K4(.)) byte for byte.  So the per-sample warp and
-// the per-patch histogram live here once and all three sources compile the
-// same code (with -fmad=false: every product and sum rounds on its own, as
-// in the plain versions).
+// the histogram of a block of patches live here once and all three sources
+// compile the same code (with -fmad=false: every product and sum rounds on
+// its own, as in the plain versions).
 #pragma once
 
 #include <cfloat>
@@ -16,7 +16,6 @@ namespace hs {
 
 constexpr int kPatch = 32;             // patch side
 constexpr int kPatchPixels = kPatch * kPatch;
-constexpr int kHistThreads = 128;      // one thread per output bin
 constexpr int kInterior = 30;
 constexpr int kPixels = kInterior * kInterior;
 
@@ -79,97 +78,292 @@ __device__ __forceinline__ uint32_t sample_word(const uint8_t* __restrict__ img,
   return word;
 }
 
-// -- the histogram of one patch, by a block of kHistThreads threads ---------
+// -- the histogram of a block of kBlockPatches patches ----------------------
+//
+// Replaces the body of the TPU kernels `_hs_hist_kernel`
+// (efficient_features_tpu/ops/window_kernels.py:1656) and `_hs_fused_kernel`
+// (:1358), whose histogram is nine one-hot (900, 16) matmuls per patch on
+// the MXU.  As `patch_sift_responses` (ops/hash_sift.py): exact integer
+// gradients over the 30x30 interior, magnitude sqrtf, orientation atan2f,
+// an orientation bin oi and its fraction; each pixel votes mag*(1 - f) into
+// bin oi and mag*f into bin oi + 1 (8 folds to 0), weighted by the (900, 16)
+// core spatial weights; then L2 normalise, clip at 0.2, L2 normalise,
+// trunc(512*d + 0.5) clipped to [0, 255], in the orientation-major layout
+// e[o*16 + rc].
+//
+// What bounds it on the H100: instructions and their latency, not bytes.  A
+// patch needs 900 atan2f / sqrtf and 2601 (pixel, spatial bin) pairs, each
+// with two weighted votes: 5202 products and sums.  The first design gave
+// each of a patch's 128 output bins a thread that walked its bin's whole
+// window and added +0 for every pixel of another orientation: 20808 trips a
+// patch, 3 of 4 adding nothing, and a warp of 15-, 11- and 10-wide windows
+// ran to the widest.  Here each vote is added once and the warps are
+// balanced:
+//   - A block holds kBlockPatches = 8 patches and kHistThreads = 256
+//     threads.  All of them compute the votes, two pixels (of patches p and
+//     p + 4) a trip so that two atan2f chains overlap.  The first
+//     kBinThreads = 128, one per (patch, spatial bin rc), then walk: the
+//     thread owns all 8 orientations of its rc, walks rc's window once in
+//     ascending pixel order and adds each pixel's two votes to bins oi and
+//     (oi + 1) % 8 of its column of a shared-memory accumulator (dynamic
+//     index, no bank conflict: column = walker).  The walk loads the next
+//     pixel's bin and votes before it stores the current sums, so that a
+//     step waits for one shared-memory round trip, not three, and keeps the
+//     weight loads of the next kWeightsAhead steps in flight, so that no
+//     step waits for the cache.
+//   - Which rc a walker takes comes from the plan (ops/hash_sift.hist_plan,
+//     a (16, 6) int32 table from Python): the bins sorted by window size,
+//     four to a warp, so warp 0 walks the four 15x15 windows of 8 patches,
+//     warp 1 the 11x15 and 15x11 ones, and so on.  Lane = 8 * (bin of the
+//     warp) + patch.  The four walking warps run 225 + 165 + 150 + 121 steps
+//     for the 8 x 2601 pairs: 98% of their lanes busy.
+//   - The weights come in the plan's order, one float per pair (10.4 KB,
+//     L1-resident), so the walk reads them at consecutive addresses.
+//   - Empty work is skipped exactly.  A patch whose 1024 bytes are all 0 has
+//     zero gradients and a zero row, so it gets neither votes nor a walk; a
+//     block of only such patches writes its zero rows and leaves after the
+//     first barrier.  The test is the patch words' warp vote (`nz`), the
+//     same for every thread of the block: no thread leaves before a barrier
+//     that another still reaches.
+//   - atan2f, sqrtf and the divisions take their slow paths (a call, the
+//     warp divided) on a zero operand.  Such operands get the functions'
+//     exact values without the call: an axis-aligned gradient the angles
+//     that IEEE atan2 gives there (+0, pi, +-pi/2, as float), a zero
+//     gradient magnitude 0, a zero bin 0 after either normalisation.
+//   - Shared memory (dynamic, `HistScratch`): the votes of 8 patches, 9 B a
+//     pixel, and the patches (8 KB, later the accumulator): 71.4 KB a
+//     block, so 3 blocks (24 patches, 24 warps) in flight per SM.
+//
+// Determinism and the sums: no atomics.  Bin (o, rc) is summed in ascending
+// pixel order, as in the first design: the skipped terms were w * 0 = +0,
+// and adding +0 to a sum that is >= 0 leaves it unchanged, so each bin is
+// the same float sequence.  The two L2 norms keep the first design's tree:
+// per orientation pair (2w, 2w + 1) the squares of each rc summed, then over
+// rc the tree of a 32-lane xor shuffle (offsets 8, 4, 2, 1 on rc), then the
+// four pair sums in order.  So the rows are those of the first design, byte
+// for byte.
 
-// Per-block scratch of `hist_from_patch`, in shared memory: each interior
-// pixel's orientation bin and its two votes, and the warp partials of the
-// norms.
+constexpr int kBlockPatches = 8;
+constexpr int kBinThreads = 16 * kBlockPatches;   // a (patch, rc) each
+constexpr int kHistThreads = 2 * kBinThreads;
+constexpr int kHalfPixels = kBlockPatches / 2 * kPixels;
+constexpr int kPlanCols = 6;   // rc, weight offset, y0, y1, x0, x1
+constexpr int kVoteStride = kPixels + 1;  // odd: a warp's 8 patches hit
+                                          // 8 banks apart
+constexpr int kOiStride = kPixels + 4;
+constexpr int kPartStride = 17;           // 16 rc + 1: no bank conflict
+constexpr int kWeightsAhead = 8;          // weight loads a walk keeps going
+constexpr float kPi = 3.14159274101257324f;       // pi, as float
+constexpr float kHalfPi = 1.57079637050628662f;   // pi / 2, as float
+
 struct HistScratch {
-  float lo[kPixels], hi[kPixels];
-  float red[kHistThreads / 32];
-  uint8_t oi[kPixels];
+  union {
+    uint8_t patch[kBlockPatches][kPatchPixels];  // until the votes are in
+    struct {
+      float acc[8][kBinThreads];                // [o][walker]
+      float part[kBlockPatches][4][kPartStride];  // [p][o pair][rc]
+      float pair[kBlockPatches][4];             // [p][o pair]
+      uint8_t row[kBlockPatches][128];
+    } h;
+  };
+  float lo[kBlockPatches][kVoteStride], hi[kBlockPatches][kVoteStride];
+  uint8_t oi[kBlockPatches][kOiStride];
+  // per patch, whether the words that each of 4 warps stored are nonzero
+  uint8_t nz[kBlockPatches][4];
 };
 
-// [lo, hi) of interior rows (1..30) that can vote into core bin row r;
-// the same for columns (ops/hash_sift.core_bin_rows)
-__device__ __forceinline__ int bin_lo(int r) { return max(8 * r - 3, 1); }
-__device__ __forceinline__ int bin_hi(int r) { return min(8 * r + 12, 31); }
-
-// sum over the block's 128 threads: xor tree per warp (every lane ends with
-// the same value, since IEEE addition commutes), then warps 0..3 in order
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  const float s = __fadd_rn(__fadd_rn(__fadd_rn(red[0], red[1]), red[2]),
-                            red[3]);
-  __syncthreads();  // red is reused by the next call
-  return s;
+// The dynamic shared memory of the kernels that run `hist_block`.  Above
+// the 48 KB a launch gets by default, so each kernel raises its limit once
+// per device before its first launch, and asks for the largest shared
+// memory carveout, in which 3 blocks fit an SM.
+template <typename Kernel>
+__host__ cudaError_t allow_hist_scratch(Kernel kernel) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess || (dev < 64 && done[dev])) return rc;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(sizeof(HistScratch)));
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+  if (rc == cudaSuccess && dev < 64) done[dev] = true;
+  return rc;
 }
 
-// The quantised SIFT row of the 32x32 u8 patch `p` (shared memory, complete
-// and visible to the block: the caller has passed a barrier after filling
-// it), written to out_row[0..127] in the orientation-major layout.  Every
-// thread of the kHistThreads-thread block must call it (it holds barriers).
-// As `patch_sift_responses` (ops/hash_sift.py): exact integer gradients over
-// the 30x30 interior, magnitude sqrtf, orientation atan2f, an orientation
-// bin and its fraction; each pixel votes mag*(1 - f) into bin oi and mag*f
-// into bin oi + 1 (8 folds to 0), weighted by the (900, 16) core spatial
-// weights; then L2 normalise, clip at 0.2, L2 normalise, trunc(512*d + 0.5)
-// clipped to [0, 255].
-//
-// Determinism: no atomics.  Thread t = o*16 + rc owns output bin (o, rc) and
-// sums its votes in pixel-index order; the norms are a fixed shuffle tree
-// per warp and then the four warp partials in order.
-__device__ __forceinline__ void hist_from_patch(
-    const uint8_t* p, const float* __restrict__ wcore, float ori_scale,
-    HistScratch& s, uint8_t* __restrict__ out_row) {
-  const int t = threadIdx.x;
-  for (int l = t; l < kPixels; l += kHistThreads) {
-    const int yy = l / kInterior + 1, xx = l % kInterior + 1;
-    const float dx = static_cast<float>(
-        static_cast<int>(p[yy * kPatch + xx + 1]) - p[yy * kPatch + xx - 1]);
-    const float dy = static_cast<float>(
-        static_cast<int>(p[(yy - 1) * kPatch + xx]) - p[(yy + 1) * kPatch + xx]);
-    const float mag = __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                           __fmul_rn(dy, dy)));
-    const float ob = __fmul_rn(ori_scale, atan2f(dy, dx));
-    const float obf = floorf(ob);
-    int oi = static_cast<int>(obf);
-    const float of = __fsub_rn(ob, obf);
-    if (oi < 0) oi += 8;
-    if (oi >= 8) oi -= 8;
-    const float v_hi = __fmul_rn(of, mag);
-    s.oi[l] = static_cast<uint8_t>(oi);
-    s.lo[l] = __fsub_rn(mag, v_hi);
-    s.hi[l] = v_hi;
+// The caller has filled s.patch[p] for p < np and s.nz for every p of the
+// block (an all-zero patch's nz is 0, as is that of p >= np).
+__device__ __forceinline__ bool patch_live(const HistScratch& s, int p) {
+  return *reinterpret_cast<const uint32_t*>(s.nz[p]) != 0u;
+}
+
+// x / n for x >= 0 and n >= FLT_EPSILON, rounded as __fdiv_rn; x = 0 gives
+// +0 without the division's slow path.
+__device__ __forceinline__ float div_nonneg(float x, float n) {
+  const float r = __fdiv_rn(x == 0.0f ? 1.0f : x, n);
+  return x == 0.0f ? 0.0f : r;
+}
+
+// Votes of pixel i of the block (patch i / kPixels), stored when the patch
+// is live.  Computed either way, so that two calls in a row overlap.
+__device__ __forceinline__ void pixel_votes(HistScratch& s, int i,
+                                            float ori_scale) {
+  const int p = i / kPixels;
+  const int l = i - p * kPixels;
+  const uint8_t* q = s.patch[p];
+  const int yy = l / kInterior + 1, xx = l % kInterior + 1;
+  const float dx = static_cast<float>(
+      static_cast<int>(q[yy * kPatch + xx + 1]) - q[yy * kPatch + xx - 1]);
+  const float dy = static_cast<float>(
+      static_cast<int>(q[(yy - 1) * kPatch + xx]) - q[(yy + 1) * kPatch + xx]);
+  // sqrtf and atan2f of the plain version; a zero operand takes their
+  // values (dx and dy are +0 when zero: converted from an int) without the
+  // slow paths
+  const float m2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  const float mag = m2 == 0.0f ? 0.0f : __fsqrt_rn(m2 == 0.0f ? 1.0f : m2);
+  const bool axis = dx == 0.0f || dy == 0.0f;
+  const float at = atan2f(axis ? 1.0f : dy, axis ? 1.0f : dx);
+  const float on_axis = dy == 0.0f ? (dx < 0.0f ? kPi : 0.0f)
+                                   : (dy > 0.0f ? kHalfPi : -kHalfPi);
+  const float ob = __fmul_rn(ori_scale, axis ? on_axis : at);
+  const float obf = floorf(ob);
+  int oi = static_cast<int>(obf);
+  const float of = __fsub_rn(ob, obf);
+  if (oi < 0) oi += 8;
+  if (oi >= 8) oi -= 8;
+  const float v_hi = __fmul_rn(of, mag);
+  if (patch_live(s, p)) {
+    s.oi[p][l] = static_cast<uint8_t>(oi);
+    s.lo[p][l] = __fsub_rn(mag, v_hi);
+    s.hi[p][l] = v_hi;
+  }
+}
+
+// The norm of v over the 128 bins of each patch, in the first design's
+// tree; v is a walker's 8 orientations of (patch p, bin rc).  Every thread
+// of the block calls it (it holds barriers); only the walkers' v count.
+__device__ __forceinline__ float block_norm(const float (&v)[8], int p,
+                                            int rc, HistScratch& s) {
+  if (threadIdx.x < kBinThreads) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      s.h.part[p][w][rc] = __fadd_rn(__fmul_rn(v[2 * w], v[2 * w]),
+                                     __fmul_rn(v[2 * w + 1], v[2 * w + 1]));
   }
   __syncthreads();
+  if (threadIdx.x < 4 * kBlockPatches) {
+    const float* a = s.h.part[threadIdx.x / 4][threadIdx.x % 4];
+    float b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = __fadd_rn(a[j], a[j + 8]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = __fadd_rn(b[j], b[j + 4]);
+    s.h.pair[threadIdx.x / 4][threadIdx.x % 4] =
+        __fadd_rn(__fadd_rn(b[0], b[2]), __fadd_rn(b[1], b[3]));
+  }
+  __syncthreads();
+  const float* e = s.h.pair[p];
+  return fmaxf(__fsqrt_rn(__fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]), e[2]),
+                                    e[3])),
+               FLT_EPSILON);
+}
 
-  const int o = t / 16, rc = t % 16;
-  const int r = rc / 4, c = rc % 4;
-  const int o_prev = (o + 7) % 8;  // pixels in bin o_prev vote v_hi here
-  float acc = 0.0f;
-  for (int yy = bin_lo(r); yy < bin_hi(r); ++yy) {
-    for (int xx = bin_lo(c); xx < bin_hi(c); ++xx) {
-      const int l = (yy - 1) * kInterior + (xx - 1);
-      const int oi = s.oi[l];
-      const float v = oi == o ? s.lo[l] : (oi == o_prev ? s.hi[l] : 0.0f);
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(wcore + l * 16 + rc), v));
-    }
+// Rows out_rows[0 .. np) (np <= kBlockPatches, 128 B each, 8-byte aligned)
+// of the block's patches.  Every thread of the kHistThreads-thread block
+// calls it, after filling s.patch and s.nz (no barrier needed before);
+// `nonzero` says whether any patch word this thread stored is nonzero.
+// plan: hist_plan's (16, kPlanCols) int32 table; wpack: its weights.
+__device__ __forceinline__ void hist_block(HistScratch& s, int np,
+                                           bool nonzero,
+                                           const int* __restrict__ plan,
+                                           const float* __restrict__ wpack,
+                                           float ori_scale,
+                                           uint8_t* __restrict__ out_rows) {
+  const int t = threadIdx.x;
+  uint2* out8 = reinterpret_cast<uint2*>(out_rows);
+  const bool mine = t * 8 < np * 128;   // this thread's 8 bytes of output
+  if (!__syncthreads_or(nonzero)) {
+    if (mine) out8[t] = make_uint2(0u, 0u);
+    return;                             // the same for the whole block
   }
 
-  const float nrm = fmaxf(__fsqrt_rn(block_sum(__fmul_rn(acc, acc), s.red)),
-                          FLT_EPSILON);
-  float d = fminf(__fdiv_rn(acc, nrm), 0.2f);
-  const float nrm2 = fmaxf(__fsqrt_rn(block_sum(__fmul_rn(d, d), s.red)),
-                           FLT_EPSILON);
-  d = __fdiv_rn(d, nrm2);
-  const float q = fminf(fmaxf(truncf(__fadd_rn(__fmul_rn(512.0f, d), 0.5f)),
-                              0.0f), 255.0f);
-  out_row[t] = static_cast<uint8_t>(q);
+  for (int i = t; i < kHalfPixels; i += kHistThreads) {
+    pixel_votes(s, i, ori_scale);
+    pixel_votes(s, i + kHalfPixels, ori_scale);
+  }
+  __syncthreads();   // votes complete; s.patch is free for s.h
+
+  // walk: walker (patch p, plan row g) adds each pixel's two votes once
+  const bool walker = t < kBinThreads;
+  const int lane = t % 32;
+  const int p = lane % kBlockPatches;
+  const int* row =
+      plan + ((t / 32) % 4 * 4 + lane / kBlockPatches) * kPlanCols;
+  const int rc = __ldg(row);
+  float* acc = &s.h.acc[0][t % kBinThreads];
+  if (walker) {
+#pragma unroll
+    for (int o = 0; o < 8; ++o) acc[o * kBinThreads] = 0.0f;
+  }
+  if (walker && patch_live(s, p)) {
+    const float* w = wpack + __ldg(row + 1);
+    const int y0 = __ldg(row + 2), x0 = __ldg(row + 4);
+    const int width = __ldg(row + 5) - x0;
+    const int n = (__ldg(row + 3) - y0) * width;
+    const uint8_t* oi = s.oi[p];
+    const float* lo = s.lo[p];
+    const float* hi = s.hi[p];
+    int l = (y0 - 1) * kInterior + (x0 - 1), xx = 0;
+    int o0 = oi[l];
+    float v_lo = lo[l], v_hi = hi[l];
+    float wq[kWeightsAhead];   // the weights of the next steps, in flight
+#pragma unroll
+    for (int k = 0; k < kWeightsAhead; ++k) wq[k] = __ldg(w + min(k, n - 1));
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+      const float wt = wq[0];
+#pragma unroll
+      for (int k = 0; k + 1 < kWeightsAhead; ++k) wq[k] = wq[k + 1];
+      wq[kWeightsAhead - 1] = __ldg(w + min(i + kWeightsAhead, n - 1));
+      // the next pixel (the last step reads one past the window, clamped)
+      const bool wrap = ++xx == width;
+      xx = wrap ? 0 : xx;
+      l += wrap ? kInterior - width + 1 : 1;
+      const int ln = min(l, kPixels - 1);
+      const int o0n = oi[ln];
+      const float lon = lo[ln], hin = hi[ln];
+      const int o1 = (o0 + 1) & 7;
+      const float a0 = acc[o0 * kBinThreads], a1 = acc[o1 * kBinThreads];
+      acc[o0 * kBinThreads] = __fadd_rn(a0, __fmul_rn(wt, v_lo));
+      acc[o1 * kBinThreads] = __fadd_rn(a1, __fmul_rn(wt, v_hi));
+      o0 = o0n;
+      v_lo = lon;
+      v_hi = hin;
+    }
+  }
+  float d[8];
+#pragma unroll
+  for (int o = 0; o < 8; ++o) d[o] = walker ? acc[o * kBinThreads] : 0.0f;
+
+  const float nrm = block_norm(d, p, rc, s);
+#pragma unroll
+  for (int o = 0; o < 8; ++o) d[o] = fminf(div_nonneg(d[o], nrm), 0.2f);
+  const float nrm2 = block_norm(d, p, rc, s);
+  if (walker) {
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float q = fminf(fmaxf(truncf(__fadd_rn(
+                                      __fmul_rn(512.0f, div_nonneg(d[o], nrm2)),
+                                      0.5f)),
+                                  0.0f),
+                            255.0f);
+      s.h.row[p][o * 16 + rc] = static_cast<uint8_t>(q);
+    }
+  }
+  __syncthreads();
+  if (mine) out8[t] = reinterpret_cast<const uint2*>(s.h.row)[t];
 }
 
 }  // namespace hs

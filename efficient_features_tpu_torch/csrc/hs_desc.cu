@@ -17,24 +17,23 @@
 // size (`_S_BASE`): pixels are read straight from the image, so one kernel
 // takes keypoints of any size, as K4 does.
 //
-// What bounds it on the H100: arithmetic, as K5 (each bin sums up to 15x15
-// weighted votes; 128 bins per keypoint).  Against K4 + K5 it saves the
-// 1 KB patch row written to and read back from device memory per keypoint
-// and one launch; DRAM traffic is the 128 B output row, the image's pixels
-// under the patch come from L1/L2.
+// What bounds it on the H100: the histogram's instructions per vote, as in
+// K5 (hs_common.cuh), plus 1024 bilinear samples per keypoint.  Against K4
+// + K5 it saves the 1 KB patch row written to and read back from device
+// memory per keypoint and one launch; DRAM traffic is the 17 B of keypoint
+// and the 128 B output row, the image's pixels under the patch come from
+// L1/L2.  An invalid slot costs only those bytes.
 //
-// Design: one block per keypoint, as the original CUDA library
-// (cuda_hash_sift.cu:380-412).  128 threads, K5's count: the histogram is
-// the larger phase by an order of magnitude and has exactly one thread per
-// output bin and a four-warp norm tree, so keeping its shape keeps its sums
-// in K5's order; the sampling phase, 256 threads in K4, here gives each
-// thread two 4-sample words (word t and word t + 128, so the shared-memory
-// stores of a warp fall on 32 different banks).  The patch goes to shared
-// memory, a barrier ends the sampling phase before any gradient is read,
-// and the block runs `hs::hist_from_patch`.  Shared memory: 1 KB patch +
-// 8.1 KB votes.  The valid flag is the same for the whole block, so an
-// invalid slot returns before the first barrier on every thread.  Build
-// with -fmad=false, as K4 and K5.
+// Design: K5's block, 256 threads per 8 keypoints, so the histogram runs
+// the same `hs::hist_block` on the same shared-memory layout and its sums
+// keep K5's order.  The sampling phase, 256 threads a patch in K4, here
+// gives each half of the block every other keypoint and each thread two
+// 4-sample words of it (word u and word u + 128, so the shared-memory
+// stores of a warp fall on 32 different banks); an invalid slot's words
+// are 0 without sampling, so `hist_block` takes it for an empty patch and
+// writes its zero row.  Whether a slot is valid is the same for each half
+// of the block, so no thread leaves early and every barrier is reached by
+// all.  Build with -fmad=false, as K4 and K5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,24 +47,44 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
                const float* __restrict__ kx, const float* __restrict__ ky,
                const float* __restrict__ cos_s,
                const float* __restrict__ sin_s,
-               const uint8_t* __restrict__ valid,
-               const float* __restrict__ wcore, float ori_scale,
-               uint8_t* __restrict__ out) {
-  __shared__ __align__(4) uint8_t p[hs::kPatchPixels];
-  __shared__ hs::HistScratch scratch;
-  const int k = blockIdx.x;
+               const uint8_t* __restrict__ valid, int n,
+               const int* __restrict__ plan, const float* __restrict__ wpack,
+               float ori_scale, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  hs::HistScratch& s = *reinterpret_cast<hs::HistScratch*>(smem);
   const int t = threadIdx.x;
-  uint8_t* out_row = out + static_cast<size_t>(k) * 128;
-  if (!valid[k]) {
-    out_row[t] = 0;
-    return;
+  const int base = blockIdx.x * hs::kBlockPatches;
+  const int np = min(hs::kBlockPatches, n - base);
+  const int u = t % hs::kBinThreads;   // 4-byte words u, u + 128 of patch p
+  constexpr int kSteps = hs::kBlockPatches / 2;
+  uint32_t w0[kSteps], w1[kSteps];
+  // every sample of the thread first, so that their loads are in flight
+  // together; then the stores and the votes
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int p = 2 * j + t / hs::kBinThreads;
+    const int k = base + p;
+    w0[j] = w1[j] = 0u;
+    if (p < np && valid[k]) {
+      const hs::Affine a = hs::keypoint_affine(kx[k], ky[k], cos_s[k],
+                                               sin_s[k]);
+      w0[j] = hs::sample_word(img, h, w, a, u * 4);
+      w1[j] = hs::sample_word(img, h, w, a, (u + hs::kBinThreads) * 4);
+    }
   }
-  const hs::Affine a = hs::keypoint_affine(kx[k], ky[k], cos_s[k], sin_s[k]);
-  uint32_t* words = reinterpret_cast<uint32_t*>(p);
-  for (int i = t; i < hs::kPatchPixels / 4; i += hs::kHistThreads)
-    words[i] = hs::sample_word(img, h, w, a, i * 4);
-  __syncthreads();
-  hs::hist_from_patch(p, wcore, ori_scale, scratch, out_row);
+  bool nonzero = false;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int p = 2 * j + t / hs::kBinThreads;
+    uint32_t* words = reinterpret_cast<uint32_t*>(s.patch[p]);
+    words[u] = w0[j];
+    words[u + hs::kBinThreads] = w1[j];
+    const bool any = __any_sync(0xffffffffu, (w0[j] | w1[j]) != 0u);
+    if (t % 32 == 0) s.nz[p][u / 32] = any;
+    nonzero |= any;
+  }
+  hs::hist_block(s, np, nonzero, plan, wpack, ori_scale,
+                 out + static_cast<size_t>(base) * 128);
 }
 
 }  // namespace
@@ -73,11 +92,22 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
 extern "C" int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
                            const float* ky, const float* cos_s,
                            const float* sin_s, const uint8_t* valid, int n,
-                           const float* wcore, float ori_scale, uint8_t* out,
-                           void* stream) {
+                           const int32_t* plan, const float* wpack,
+                           float ori_scale, uint8_t* out, void* stream) {
   if (h < 1 || w < 1 || n < 1) return cudaErrorInvalidValue;
-  hs_desc_kernel<<<n, hs::kHistThreads, 0,
+  const cudaError_t rc = hs::allow_hist_scratch(hs_desc_kernel);
+  if (rc != cudaSuccess) return rc;
+  hs_desc_kernel<<<(n + hs::kBlockPatches - 1) / hs::kBlockPatches,
+                   hs::kHistThreads, sizeof(hs::HistScratch),
                    static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, kx, ky, cos_s, sin_s, valid, wcore, ori_scale, out);
+      img, h, w, kx, ky, cos_s, sin_s, valid, n, plan, wpack, ori_scale,
+      out);
   return cudaGetLastError();
+}
+
+extern "C" int eff_hs_desc_blocks_per_sm(int* blocks) {
+  const cudaError_t rc = hs::allow_hist_scratch(hs_desc_kernel);
+  if (rc != cudaSuccess) return rc;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, hs_desc_kernel, hs::kHistThreads, sizeof(hs::HistScratch));
 }

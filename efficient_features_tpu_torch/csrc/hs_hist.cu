@@ -14,20 +14,21 @@
 // stand in for what Mosaic lacks; here atan2f, IEEE division and direct
 // pixel differences are used.
 //
-// The per-patch body is `hs::hist_from_patch` in hs_common.cuh, which the
-// fused kernel K11 (hs_desc.cu) compiles too.  It uses no atomics: the same
-// input gives the same bytes on every run.
+// The body is `hs::hist_block` in hs_common.cuh, which the fused kernel K11
+// (hs_desc.cu) compiles too; its notes give the design.  It uses no
+// atomics: the same input gives the same bytes on every run.
 //
-// What bounds it on the H100: arithmetic.  Each bin's sum runs over the
-// <= 15x15 pixels whose spatial weight for it can be nonzero
-// (ops/hash_sift.core_bin_rows), 128 bins per keypoint; the patch (1 KB),
-// the per-pixel votes (9 KB) and the weights (57.6 KB, L1/L2-resident) are
-// read from shared memory and cache.  DRAM traffic is 1152 B per keypoint.
+// What bounds it on the H100: the instructions per vote, 900 atan2f and
+// 5202 weighted votes a patch (hs_common.cuh).  DRAM traffic is 1152 B per
+// patch and the 10.8 KB plan once.  An all-zero patch (every invalid slot of
+// the pipeline's levels) costs only its bytes: its row is zero without the
+// histogram.
 //
-// Design: one 128-thread block per keypoint.  The patch is loaded with one
-// 8-byte read per thread; each thread then turns ~7 pixels into (oi, v_lo,
-// v_hi) in shared memory, and after a barrier sums its bin.  Build with
-// -fmad=false: the votes and sums round as the plain version's steps do.
+// Design: a 256-thread block per 8 patches (the last block may hold
+// fewer).  Each half of the block loads every other patch into shared
+// memory, 8 bytes a thread, and its warps vote which patches hold a nonzero
+// word; `hist_block` does the rest.  Build with -fmad=false: the votes and
+// sums round as the plain version's steps do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,28 +38,51 @@
 namespace {
 
 __global__ void __launch_bounds__(hs::kHistThreads)
-hs_hist_kernel(const uint8_t* __restrict__ patches,
-               const float* __restrict__ wcore, float ori_scale,
-               uint8_t* __restrict__ out) {
-  __shared__ __align__(8) uint8_t p[hs::kPatchPixels];
-  __shared__ hs::HistScratch scratch;
-  const int k = blockIdx.x;
+hs_hist_kernel(const uint8_t* __restrict__ patches, int n,
+               const int* __restrict__ plan, const float* __restrict__ wpack,
+               float ori_scale, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  hs::HistScratch& s = *reinterpret_cast<hs::HistScratch*>(smem);
   const int t = threadIdx.x;
-  reinterpret_cast<uint2*>(p)[t] = __ldg(
-      reinterpret_cast<const uint2*>(patches + static_cast<size_t>(k)
-                                     * hs::kPatchPixels) + t);
-  __syncthreads();
-  hs::hist_from_patch(p, wcore, ori_scale, scratch,
-                      out + static_cast<size_t>(k) * 128);
+  const int base = blockIdx.x * hs::kBlockPatches;
+  const int np = min(hs::kBlockPatches, n - base);
+  const int u = t % hs::kBinThreads;   // 8-byte word u of patch p
+  bool nonzero = false;
+#pragma unroll
+  for (int j = 0; j < hs::kBlockPatches; j += 2) {
+    const int p = j + t / hs::kBinThreads;
+    uint2 v = make_uint2(0u, 0u);
+    if (p < np)
+      v = __ldg(reinterpret_cast<const uint2*>(
+                    patches + static_cast<size_t>(base + p) * hs::kPatchPixels)
+                + u);
+    reinterpret_cast<uint2*>(s.patch[p])[u] = v;
+    const bool any = __any_sync(0xffffffffu, (v.x | v.y) != 0u);
+    if (t % 32 == 0) s.nz[p][u / 32] = any;
+    nonzero |= any;
+  }
+  hs::hist_block(s, np, nonzero, plan, wpack, ori_scale,
+                 out + static_cast<size_t>(base) * 128);
 }
 
 }  // namespace
 
-extern "C" int eff_hs_hist(const uint8_t* patches, int n, const float* wcore,
-                           float ori_scale, uint8_t* out, void* stream) {
+extern "C" int eff_hs_hist(const uint8_t* patches, int n, const int32_t* plan,
+                           const float* wpack, float ori_scale, uint8_t* out,
+                           void* stream) {
   if (n < 1) return cudaErrorInvalidValue;
-  hs_hist_kernel<<<n, hs::kHistThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(patches, wcore,
-                                                        ori_scale, out);
+  const cudaError_t rc = hs::allow_hist_scratch(hs_hist_kernel);
+  if (rc != cudaSuccess) return rc;
+  hs_hist_kernel<<<(n + hs::kBlockPatches - 1) / hs::kBlockPatches,
+                   hs::kHistThreads, sizeof(hs::HistScratch),
+                   static_cast<cudaStream_t>(stream)>>>(
+      patches, n, plan, wpack, ori_scale, out);
   return cudaGetLastError();
+}
+
+extern "C" int eff_hs_hist_blocks_per_sm(int* blocks) {
+  const cudaError_t rc = hs::allow_hist_scratch(hs_hist_kernel);
+  if (rc != cudaSuccess) return rc;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, hs_hist_kernel, hs::kHistThreads, sizeof(hs::HistScratch));
 }

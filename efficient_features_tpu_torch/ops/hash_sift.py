@@ -92,8 +92,49 @@ def spatial_weight_core_on(device: str) -> torch.Tensor:
 def core_bin_rows(r: int) -> tuple[int, int]:
     """[lo, hi) range of interior patch rows (1..30) that can vote into core
     row bin r; the same bound holds for columns and core column bins.  The
-    histogram kernel sums only over this window (csrc/hs_hist.cu)."""
+    histogram kernel sums only over this window (`hist_plan`)."""
     return max(8 * r - 3, 1), min(8 * r + 12, PATCH_H - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def hist_plan() -> tuple[np.ndarray, np.ndarray]:
+    """The histogram kernel's walk (csrc/hs_common.cuh, `hist_block`).
+
+    Returns (plan, weights).  plan is (16, 6) int32, one row per core
+    spatial bin: [rc, offset, y0, y1, x0, x1], the window core_bin_rows(r)
+    x core_bin_rows(c) of rc = 4r + c, the rows in descending window size
+    (stable), so that the kernel's warp g, which takes rows 4g .. 4g + 3,
+    has windows of equal or near-equal size.  weights is (sum of the window
+    sizes,) float32: for each row in order, starting at its offset,
+    `spatial_weight_core()[l, rc]` over the window's pixels in ascending
+    pixel order (l = (y - 1) * 30 + x - 1)."""
+    wcore = spatial_weight_core()
+
+    def window(rc):
+        (y0, y1), (x0, x1) = core_bin_rows(rc // C_BINS), core_bin_rows(
+            rc % C_BINS)
+        return y0, y1, x0, x1
+
+    def size(rc):
+        y0, y1, x0, x1 = window(rc)
+        return (y1 - y0) * (x1 - x0)
+
+    plan, weights, offset = [], [], 0
+    for rc in sorted(range(R_BINS * C_BINS), key=lambda rc: -size(rc)):
+        y0, y1, x0, x1 = window(rc)
+        plan.append([rc, offset, y0, y1, x0, x1])
+        ys, xs = np.meshgrid(np.arange(y0, y1), np.arange(x0, x1),
+                             indexing="ij")
+        weights.append(wcore[((ys - 1) * (PATCH_W - 2) + xs - 1).ravel(), rc])
+        offset += size(rc)
+    return (np.array(plan, np.int32),
+            np.ascontiguousarray(np.concatenate(weights), np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def hist_plan_on(device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """`hist_plan` on `device` (cached; read-only)."""
+    return tuple(torch.from_numpy(a).to(device) for a in hist_plan())
 
 
 @contextlib.contextmanager

@@ -13,6 +13,8 @@ kernel for a CUDA tensor; `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -185,11 +187,11 @@ def hs_hist_from_patches(patches: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, 128), dtype=torch.uint8, device=patches.device)
     if n == 0:
         return out
-    wcore = HS.spatial_weight_core_on(str(patches.device))
+    plan, wpack = HS.hist_plan_on(str(patches.device))
     lib = _build.library()
     with torch.cuda.device(patches.device):
-        rc = lib.eff_hs_hist(patches.data_ptr(), n, wcore.data_ptr(),
-                             HS.ORI_SCALE, out.data_ptr(),
+        rc = lib.eff_hs_hist(patches.data_ptr(), n, plan.data_ptr(),
+                             wpack.data_ptr(), HS.ORI_SCALE, out.data_ptr(),
                              stream_of(patches))
         _build.check(rc, "hs_hist_from_patches")
         hs_hist_from_patches.launches += 1
@@ -225,16 +227,30 @@ def hs_desc_windows(image, x, y, size, angle, valid,
     args = _affine_args(x, y, size, angle, scale)[:4]
     valid_u8 = valid.to(torch.uint8).contiguous()
     require_cuda(valid_u8, torch.uint8, "valid")
-    wcore = HS.spatial_weight_core_on(str(image.device))
+    plan, wpack = HS.hist_plan_on(str(image.device))
     lib = _build.library()
     with torch.cuda.device(image.device):
         rc = lib.eff_hs_desc(image.data_ptr(), h, w,
                              *(t.data_ptr() for t in args),
-                             valid_u8.data_ptr(), n, wcore.data_ptr(),
-                             HS.ORI_SCALE, out.data_ptr(), stream_of(image))
+                             valid_u8.data_ptr(), n, plan.data_ptr(),
+                             wpack.data_ptr(), HS.ORI_SCALE, out.data_ptr(),
+                             stream_of(image))
         _build.check(rc, "hs_desc_windows")
         hs_desc_windows.launches += 1
     return out
 
 
 hs_desc_windows.launches = 0
+
+
+def hs_blocks_per_sm() -> tuple[int, int]:
+    """(K5, K11) blocks of 8 patches that one SM of the current CUDA device
+    holds at once (the CUDA occupancy calculator, with the shared memory
+    the kernels ask for)."""
+    lib = _build.library()
+    got = []
+    for fn in (lib.eff_hs_hist_blocks_per_sm, lib.eff_hs_desc_blocks_per_sm):
+        blocks = ctypes.c_int(0)
+        _build.check(fn(ctypes.byref(blocks)), "hs_blocks_per_sm")
+        got.append(blocks.value)
+    return got[0], got[1]

@@ -13,7 +13,8 @@ K1 (with and without a mask), K2, K7, K8, K9 and K10 bit-exact, K3 at most
 int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 and K11
 rows |diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
 descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must
-give the same bytes on every run, and K11 the bytes of K5 on K4's patches.
+give the same bytes on every run, and K11 the bytes of K5 on K4's patches,
+also at the edges of their 8-patch blocks.
 """
 import numpy as np
 import pytest
@@ -465,6 +466,63 @@ def test_fused_hs_kernel_matches_two_stage_and_plain(dev, size, scene):
     assert int(rows[~kp[4]].to(torch.int32).sum()) == 0
     assert bool((rows[kp[4]] != 0).any())
     assert torch.equal(rows, WK.hs_desc_windows(t, *kp, 1.0))    # determinism
+
+
+def block_edge_valid(n: int) -> np.ndarray:
+    """Valid flags that put empty slots at the edges of the histogram
+    kernels' 8-slot blocks: blocks 0-7 each lack the slot at their own
+    position, blocks 8-15 hold only that slot, block 16 is all invalid,
+    the rest valid (n = 147 covers every pattern and a 3-slot tail)."""
+    valid = np.ones(n, bool)
+    for b in range(min(8, n // 8)):
+        valid[8 * b + b] = False
+    for b in range(8, min(16, n // 8)):
+        valid[8 * b:8 * b + 8] = False
+        valid[8 * b + b - 8] = True
+    if n >= 136:
+        valid[128:136] = False
+    return valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,scene", [(1, "scene"), (7, "scene"),
+                                     (9, "scene"), (63, "scene"),
+                                     (65, "scene"), (147, "scene"),
+                                     (147, "edges")])
+def test_hist_kernels_at_block_edges(dev, n, scene):
+    """K5 and K11 at the edges of their 8-patch blocks: n = 1, one below
+    and one above a multiple of 8, empty patches (K5) and invalid slots
+    (K11) at every position of a block, a block of only those, blocks with
+    one live patch, a valid keypoint whose patch lies off the image, and
+    the saturated 0/255 edge image.  Each: within the histogram tolerance
+    of plain, zero rows where the patch is empty or the slot invalid, two
+    runs bit-identical, and K11 the bytes of K5 on K4's patches."""
+    img = make_test_image(200, 280, seed=33) if scene == "scene" \
+        else _edge_image()
+    h, w = img.shape
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0, w - 1, n).astype(np.float32)
+    y = rng.uniform(0, h - 1, n).astype(np.float32)
+    angle = rng.uniform(0, 360, n).astype(np.float32)
+    angle[::5] = -1.0
+    valid = block_edge_valid(n)
+    if n > 1:
+        x[n // 2] = -500.0                 # valid, its patch all zero
+    t = torch.from_numpy(img).to(dev)
+    kp = [torch.from_numpy(a).to(dev)
+          for a in (x, y, np.full(n, 31.0, np.float32), angle, valid)]
+    patches = WK.warp_patches_windows(t, *kp, 1.0)
+    staged = WK.hs_hist_from_patches(patches)
+    rows = WK.hs_desc_windows(t, *kp, 1.0)
+    assert torch.equal(rows, staged)
+    _close_u8(staged, WK.hs_hist_from_patches_ref(patches), 2e-3)
+    _close_u8(rows, WK.hs_desc_windows_ref(t, *kp, 1.0), 2e-3)
+    empty = (patches == 0).all(dim=1)
+    assert bool(empty[~kp[4]].all()) and bool(empty[n // 2]) == (n > 1)
+    assert int(staged[empty].to(torch.int32).sum()) == 0
+    assert bool((staged != 0).any())
+    assert torch.equal(staged, WK.hs_hist_from_patches(patches))
+    assert torch.equal(rows, WK.hs_desc_windows(t, *kp, 1.0))
 
 
 @pytest.mark.cuda

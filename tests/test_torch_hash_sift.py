@@ -119,6 +119,74 @@ def test_spatial_weight_core_matches_jax():
         assert (core[~inside, rc] == 0).all() and (core[inside, rc] > 0).any()
 
 
+def test_hist_plan_covers_each_weight_once():
+    """The histogram kernels' walk (csrc/hs_common.cuh): each core bin's
+    window is core_bin_rows(r) x core_bin_rows(c), holds exactly the
+    nonzeros of spatial_weight_core's column, and its weights follow in
+    ascending pixel order; the bins are sorted by window size so that the
+    four bins of each warp run about the same number of trips."""
+    plan, wpack = THS.hist_plan()
+    core = THS.spatial_weight_core()
+    assert plan.dtype == np.int32 and plan.shape == (16, 6)
+    assert wpack.dtype == np.float32 and wpack.shape == ((core != 0).sum(),)
+    assert sorted(plan[:, 0]) == list(range(16))
+    sizes = (plan[:, 3] - plan[:, 2]) * (plan[:, 5] - plan[:, 4])
+    assert (np.diff(sizes) <= 0).all()
+    np.testing.assert_array_equal(plan[:, 1], np.cumsum(sizes) - sizes)
+    for rc, off, y0, y1, x0, x1 in plan:
+        assert (y0, y1) == THS.core_bin_rows(rc // 4)
+        assert (x0, x1) == THS.core_bin_rows(rc % 4)
+        ys, xs = np.meshgrid(np.arange(y0, y1), np.arange(x0, x1),
+                             indexing="ij")
+        window = ((ys - 1) * 30 + xs - 1).ravel()
+        np.testing.assert_array_equal(np.flatnonzero(core[:, rc]), window)
+        np.testing.assert_array_equal(wpack[off:off + window.size],
+                                      core[window, rc])
+    trips = sizes.reshape(4, 4).max(axis=1)       # a warp runs its longest
+    assert list(trips) == [225, 165, 150, 121]
+    assert wpack.size * 8 / (trips.sum() * 32) > 0.98
+
+
+def test_hist_walk_adds_each_vote_once_in_the_dense_order():
+    """The kernels' walk (one pass over each bin's window, each pixel's
+    two votes added to bins oi and (oi + 1) % 8, the window's row wrap as
+    in `hist_block`) gives the float32 sums of a dense walk that adds
+    w * 0 for every other orientation, bit for bit: every vote and weight
+    is >= 0, so the skipped terms are +0."""
+    plan, wpack = THS.hist_plan()
+    core = THS.spatial_weight_core()
+    rng = np.random.default_rng(7)
+    n = 16
+    oi = rng.integers(0, 8, (n, 900))
+    mag = rng.choice([0.0, 1.0, 255.0, 360.62445], (n, 900)).astype(
+        np.float32) * rng.random((n, 900)).astype(np.float32)
+    hi = (mag * rng.random((n, 900)).astype(np.float32)).astype(np.float32)
+    lo = (mag - hi).astype(np.float32)
+    rows = np.arange(n)
+    for rc, off, y0, y1, x0, x1 in plan:
+        dense = np.zeros((n, 8), np.float32)
+        for yy in range(y0, y1):
+            for xx in range(x0, x1):
+                l = (yy - 1) * 30 + xx - 1
+                for o in range(8):
+                    v = np.where(oi[:, l] == o, lo[:, l],
+                                 np.where(oi[:, l] == (o + 7) % 8, hi[:, l],
+                                          np.float32(0)))
+                    dense[:, o] += core[l, rc] * v
+        walk = np.zeros((n, 8), np.float32)
+        width = x1 - x0
+        l, xx = (y0 - 1) * 30 + x0 - 1, 0
+        for i in range((y1 - y0) * width):
+            o0, o1 = oi[:, l], (oi[:, l] + 1) & 7
+            walk[rows, o0] += wpack[off + i] * lo[:, l]
+            walk[rows, o1] += wpack[off + i] * hi[:, l]
+            xx += 1
+            l += 30 - width + 1 if xx == width else 1
+            xx = 0 if xx == width else xx
+        np.testing.assert_array_equal(walk.view(np.uint32),
+                                      dense.view(np.uint32))
+
+
 @pytest.mark.parametrize("size", [31.0, 64.0, 111.0, 300.0])
 def test_warp_plain_matches_jax(img, size):
     n = 24
