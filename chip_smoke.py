@@ -7,9 +7,14 @@ checks each against its plain PyTorch version on the card: K1 cells (with
 and without its ROI mask input, radius 10-128, on the scene, the dense scene
 and 4K uniform noise, and an image whose corners all tie, so that each
 scans its whole disc), K7 dense FAST+Harris+NMS
-and K8 dense FAST+Harris (radius 1-9, five images, bit-exact), K9 disc NMS
+and K8 dense FAST+Harris (radius 1-9, bit-exact; K7 also on the scene
+plus noise, on equal responses, where ties co-survive, and on an image
+smaller than one tile), K9 disc NMS
 (radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
-moments, K3 BAD (at size 31 and at 64-300 px), K4 HashSIFT warp (sizes
+moments, K3 BAD (byte for byte at 256 and 512 bits, at size 31 and at
+64-300 px, on both sides of its shared-memory window limit, on the image
+corners and the 27.125 px branch boundary, n = 1, every slot invalid,
+images 1-3 px tall or wide), K4 HashSIFT warp (sizes
 31*1.2^k and 300 px), K5 HashSIFT histogram (deterministic, zero patch ->
 zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
 2160x3840 frame, odd sizes, an upscale, 16x20 and 8x8 destinations, noise
@@ -31,7 +36,9 @@ port's main paths at 2160x3840 with 40000 features, each with every
 launch count set to 0 just before and read just after:
   - `EfficientFeatures.detect_and_compute` with BAD-256, BAD-512,
     HashSIFT-256 and HashSIFT-512, checked against the plain path on the
-    card and against the port on the CPU;
+    card and against the port on the CPU; this path and compute() fail if
+    they call `ops.image.integral_image_i32` (K3 sums its own boxes), and
+    the kernels of K3's wrapper call are listed (no scan among them);
   - standalone `compute()` (`BAD`, `HashSIFT`, 256 and 512 bits) on the
     slice's detected keypoints and on 40000 host keypoints of mixed size,
     checked against the plain path on the card;
@@ -252,6 +259,24 @@ def patched(module_attrs):
     finally:
         for m, n, v in saved:
             setattr(m, n, v)
+
+
+def kernel_names(fn) -> dict:
+    """{kernel name: (launches, device ms)} of the CUDA kernels one call of
+    fn makes (torch.profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            out[e.key] = (e.count, t / 1e3)
+    return out
 
 
 def host_syncs(fn) -> int:
@@ -501,6 +526,13 @@ def main() -> int:
         only: it is the on-card reference)."""
         return patched([((m, n), ref) for m, n, ref, *_ in kernels])
 
+    def no_integral():
+        """K3 sums its own boxes: on the card path a call of the integral
+        image fails the run."""
+        def forbidden(*args, **kwargs):
+            fail("ops.image.integral_image_i32 was called on the card path")
+        return patched([((I, "integral_image_i32"), forbidden)])
+
     # -- main-path runs: counts set to 0 just before, read just after -------
     totals = dict.fromkeys(names, 0)
     recorded = {}    # kernel -> its calls in the first run that launched it
@@ -631,8 +663,18 @@ def main() -> int:
 
     # -- K7, K8: dense FAST + Harris (+ NMS) vs plain, bit-exact -------------
     crop = img[:H - 1, :W - 3].contiguous()          # ragged tiles both ways
+    noisy = (img.to(torch.int32) + torch.from_numpy(np.random.default_rng(
+        9).integers(-24, 25, (H, W))).to(dev)).clamp(0, 255).to(torch.uint8)
     for label, image in (("scene", sparse), ("tiled scene", img),
-                         ("tie", tie), ("wrap", wrap), ("crop", crop)):
+                         ("tie", tie), ("wrap", wrap), ("crop", crop),
+                         ("tiled scene + noise", noisy),
+                         ("equal responses",
+                          torch.from_numpy(equal_image(H, W)).to(dev)),
+                         ("equal responses, less than a tile",
+                          torch.from_numpy(equal_image(31, 63)).to(dev)),
+                         ("31x63 crop, less than a tile",
+                          img[1084:1115, 1500:1563].contiguous()),
+                         ("97x65 crop", img[1000:1097, 1500:1565].contiguous())):
         resp8 = DK.fast_harris(image, 20)
         check_same(f"K8 {label}", "fast_harris", resp8,
                    DK.fast_harris_ref(image, 20))
@@ -642,9 +684,17 @@ def main() -> int:
             check_same(f"K7 {label} radius {radius}", "fast_harris_nms", got,
                        DK.fast_harris_nms_ref(image, 20, radius))
             live.append(int(torch.isfinite(got).sum()))
+        corners = int(torch.isfinite(resp8).sum())
+        if label.startswith("equal") and live != [corners] * 4:
+            fail(f"K7 {label}: of {corners} tied corners {live} survive")
         print(f"K7, K8 {label} {tuple(image.shape)}: bit-exact; "
-              f"{int(torch.isfinite(resp8).sum())} corners, survivors at "
-              f"radius 1/3/5/9: {live}")
+              f"{corners} corners, survivors at radius 1/3/5/9: {live}")
+        if image.shape == (H, W) and label != "scene":
+            k7_ms = [time_ms(lambda: DK.fast_harris_nms(image, 20, r),
+                             iters=5, warmup=1) for r in (5, 9)]
+            print(f"time K7 {label} {H}x{W}, one launch at radius 5 / 9: "
+                  f"{k7_ms[0]:.3f} / {k7_ms[1]:.3f} ms [{hw}]")
+    del noisy
     # radius 1 suppresses nothing, so the wrap-run corner itself must show
     if not bool(torch.isfinite(DK.fast_harris_nms(wrap, 20, 1)[24, 32])):
         fail("K7 missed the wrap-run corner")
@@ -780,7 +830,7 @@ def main() -> int:
     errs["ic_moments_windows"] = max_abs_err(m_got, m_ref)
     print(f"K2 {N_KP} keypoints (edges included): moments exact")
 
-    # -- K3: BAD, within budget, at size 31 and at 64-300 px ----------------
+    # -- K3: BAD byte for byte: size 31, 64-300 px, the window limit, edges -
     kx = rng.uniform(0, W - 1, N_KP).astype(np.float32)
     ky = rng.uniform(0, H - 1, N_KP).astype(np.float32)
     kx[:8] = [0, W - 1, 0, W - 1, 0.5, W - 1.5, 14.0, 27.125]
@@ -790,23 +840,37 @@ def main() -> int:
     kvalid = rng.random(N_KP) < 0.95
     big = rng.uniform(64.0, 300.0, N_KP).astype(np.float32)
     big[:8] = [64.0, 300.0, 111.0, 192.5, 300.0, 64.0, 150.0, 300.0]
-    for image, sizes, what in (
-            (blurred, np.full(N_KP, 31.0, np.float32), "size 31"),
-            (img, big, "sizes 64-300 px")):
-        kp = [torch.from_numpy(a).to(dev) for a in (kx, ky, sizes, ka,
-                                                    kvalid)]
+    # s = 1.125 (size 36) is the largest a warp's window integral takes
+    limit = rng.choice(np.float32([34.0, 35.9, 36.0, 36.1, 37.2, 44.6]), N_KP)
+
+    def check_bad(label, image, kp, quiet=False):
+        """K3 against its plain version at 256 and 512 bits: 0 bytes may
+        differ."""
         for nbits in (256, 512):
             d_got = WK.bad_descriptors_windows(image, *kp, nbits, 1.0)
             d_ref = WK.bad_descriptors_windows_ref(image, *kp, nbits, 1.0)
             ndiff = int((d_got != d_ref).sum())
-            budget = byte_budget("bad", d_ref.numel())
-            if ndiff > budget:
-                fail(f"K3 {what} {nbits} bits: {ndiff} differing bytes > "
-                     f"budget {budget}")
+            if d_got.shape != d_ref.shape or ndiff:
+                fail(f"K3 {label} {nbits} bits: {ndiff} bytes differ from "
+                     f"the plain version")
             errs["bad_descriptors_windows"] = max(
                 errs["bad_descriptors_windows"], max_abs_err(d_got, d_ref))
-            print(f"K3 {what}, {nbits} bits, {N_KP} keypoints (edges "
-                  f"included): {ndiff} differing bytes (budget {budget})")
+            if not quiet:
+                print(f"K3 {label}, {nbits} bits, {kp[0].shape[0]} keypoints "
+                      "(corners, edges and the 27.125 px branch boundary "
+                      "included): byte for byte")
+
+    for image, sizes, what in (
+            (blurred, np.full(N_KP, 31.0, np.float32), "size 31"),
+            (img, big, "sizes 64-300 px"),
+            (img, limit, "sizes 34-44.6 px, both sides of the window limit")):
+        kp = [torch.from_numpy(a).to(dev) for a in (kx, ky, sizes, ka,
+                                                    kvalid)]
+        check_bad(what, image, kp)
+        plan = B.window_plan(kp[0], kp[1], kp[2] / 32.0, H, W)
+        print(f"K3 {what}: {int((plan.in_smem & kp[4]).sum())} valid "
+              "keypoints on the window branch, "
+              f"{int((~plan.in_smem & kp[4]).sum())} on the integral branch")
         # the border branch, and within it the wide-box (trunc12) compare
         # for box pairs whose area product reaches 2^22, run at these sizes
         s = kp[2] / 32.0
@@ -819,6 +883,25 @@ def main() -> int:
         print(f"K3 {what}: {int(border.sum())} valid keypoints on the border "
               f"branch, {int(wide.sum())} of them with 512-bit box pairs of "
               "area product >= 2^22 before clamping")
+    # images 1-3 px tall or wide, keypoints in and around them; n = 1 and
+    # every slot invalid
+    edge_rng = np.random.default_rng(8)
+    for shape in ((1, 1), (1, 40), (40, 1), (2, 3), (3, 2), (3, 50)):
+        tiny = torch.from_numpy(edge_rng.integers(0, 256, shape,
+                                                  dtype=np.uint8)).to(dev)
+        n = 64
+        ex = edge_rng.uniform(-40.0, shape[1] + 40.0, n).astype(np.float32)
+        ey = edge_rng.uniform(-40.0, shape[0] + 40.0, n).astype(np.float32)
+        esz = edge_rng.uniform(31.0, 300.0, n).astype(np.float32)
+        esz[::3] = 31.0
+        ekp = [torch.from_numpy(a).to(dev) for a in (ex, ey, esz, ka[:n])]
+        for k, ok in ((n, np.ones(n, bool)), (n, np.zeros(n, bool)),
+                      (1, np.ones(1, bool))):
+            check_bad(f"{shape[0]}x{shape[1]} image, n = {k}", tiny,
+                      [t[:k] for t in ekp] + [torch.from_numpy(ok).to(dev)],
+                      quiet=True)
+    print("K3 images 1x1, 1x40, 40x1, 2x3, 3x2, 3x50 (64 keypoints in and "
+          "around each, all valid / all invalid, and n = 1): byte for byte")
 
     # -- K4: HashSIFT warp, bit-exact expected --------------------------------
     warp_sizes = np.array([31.0 * 1.2 ** k for k in range(8)] + [300.0],
@@ -1072,10 +1155,11 @@ def main() -> int:
         ef = EfficientFeatures(nfeatures=NFEATURES, descriptor_type=dtype,
                                device="cuda")
         D.select_topk_cells.fallbacks = 0
-        (kps, desc), counts = drive(
-            f"detect_and_compute {dtype}",
-            lambda: ef.detect_and_compute_async(scene),
-            detect_kernels + desc_kernels[kind])
+        with no_integral():
+            (kps, desc), counts = drive(
+                f"detect_and_compute {dtype}",
+                lambda: ef.detect_and_compute_async(scene),
+                detect_kernels + desc_kernels[kind])
         fallbacks = D.select_topk_cells.fallbacks
         n = kps.count
         slots = kps._slots
@@ -1114,6 +1198,32 @@ def main() -> int:
               f"{ndiff_p}, cpu {ndiff_c} (budget {budget})")
         if detected is None:
             detected = kps
+        if dtype == "bad_256":
+            k3_calls = last_calls["bad_descriptors_windows"]
+            with no_integral():
+                k3_kernels = kernel_names(lambda: [
+                    WK.bad_descriptors_windows(*a, **k) for a, k in k3_calls])
+            scans = [k for k in k3_kernels
+                     if "scan" in k.lower() or "cumsum" in k.lower()]
+            if scans or not any("bad_kernel" in k for k in k3_kernels):
+                fail(f"K3's wrapper: scan kernels {scans}, kernels "
+                     f"{k3_kernels}")
+            # every window fits a warp's integral, so K3's integral passes
+            # return at once: no integral of the level is built
+            for a, _ in k3_calls:
+                image, kx_, ky_, size_, _, valid_, _, scale_ = a
+                plan = B.window_plan(kx_, ky_, float(np.float32(scale_))
+                                     * size_.to(torch.float32) / 32.0,
+                                     *image.shape)
+                if not bool((plan.in_smem | ~valid_).all()):
+                    fail("K3 on detect_and_compute: a window does not fit "
+                         "a warp's integral")
+            listed = {k[:48]: (c, round(t, 4))
+                      for k, (c, t) in k3_kernels.items()}
+            print(f"K3's wrapper, the {len(k3_calls)} calls of this slice: "
+                  "no torch integral and no scan kernel; every window in "
+                  "shared memory, so K3's own integral passes return at "
+                  f"once; kernels (launches, ms) {listed}")
 
         syncs = host_syncs(lambda: ef.detect_and_compute_async(img))
         slice_ms = time_ms(lambda: ef.detect_and_compute_async(img))
@@ -1137,9 +1247,12 @@ def main() -> int:
         label = f"{cls.__name__}-{nbits}"
         for what, kin in (("detected keypoints", detected),
                           (f"{N_KP} host keypoints", hk)):
-            got, counts = drive(f"compute {label} on {what}",
-                                lambda: describer.compute_async(img, kin),
-                                desc_kernels[kind])
+            with no_integral():
+                got, counts = drive(f"compute {label} on {what}",
+                                    lambda: describer.compute_async(img, kin),
+                                    desc_kernels[kind])
+            if label == "BAD-256" and what != "detected keypoints":
+                compute_k3_calls = last_calls["bad_descriptors_windows"]
             with plain_kernels():
                 want = describer.compute_async(img, kin)
             ndiff = int((got != want).sum())
@@ -1575,12 +1688,14 @@ def main() -> int:
               f"call that ran it{empty}, kernel {times[name][0]:.3f} ms, "
               f"plain {times[name][1]:.3f} ms [{hw}]")
 
-    for label, name, calls in (
-            ("masked, config (a)", "fast_harris_nms_cells",
+    for label, mod, name, calls in (
+            ("masked, config (a)", DK, "fast_harris_nms_cells",
              config_calls["a"]["fast_harris_nms_cells"]),
-            ("radius 64, config (d)", "fast_harris_nms_cells",
-             config_calls["d"]["fast_harris_nms_cells"])):
-        fn, ref = getattr(DK, name), getattr(DK, name + "_ref")
+            ("radius 64, config (d)", DK, "fast_harris_nms_cells",
+             config_calls["d"]["fast_harris_nms_cells"]),
+            (f"compute() BAD-256, {N_KP} host keypoints of 31-300 px", WK,
+             "bad_descriptors_windows", compute_k3_calls)):
+        fn, ref = getattr(mod, name), getattr(mod, name + "_ref")
 
         def replay(f, calls=calls):
             for args, kwargs in calls:

@@ -34,12 +34,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "eff_fast_harris_nms_cells": [_P, _P, _I, _I, _I, _I, _P, _I,
                                   ctypes.c_float, _P, _P, _P, _P, _P],
-    "eff_fast_harris_nms": [_P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],
+    "eff_fast_harris_nms": [_P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P,
+                            _P],
     "eff_fast_harris": [_P, _I, _I, _I, ctypes.c_float, _P, _P],
     "eff_radius_nms": [_P, _I, _I, _I, _P, _P, _P],
     "eff_ic_moments": [_P, _I, _I, _P, _P, _I, _P, _P],
     "eff_bad_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                            _I, _P, _P],
+                            _I, _P, _P, _P, _P],
     "eff_warp_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "eff_hs_hist": [_P, _I, _P, _P, ctypes.c_float, _P, _P],
     "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,

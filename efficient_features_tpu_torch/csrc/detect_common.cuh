@@ -2,8 +2,9 @@
 // (fast_harris_nms.cu) and K8 (fast_harris.cu): FAST-9 (a run of 9 in
 // either of two 16-bit masks), exact-int Sobel and 7x7 structure-tensor
 // sums, the Harris response with truncated mantissas and k = 3/64 (every
-// float product exact), the 15 px border, an optional ROI mask, and the disc NMS test where
-// ties co-survive.  One copy of the selection-feeding math for all three.
+// float product exact), the 15 px border and an optional ROI mask, into a
+// dense response map; K1 and K7 run their disc NMS on that map in a kernel
+// of their own.  One copy of the selection-feeding math for all three.
 // They replace the TPU kernels of
 // efficient_features_tpu/ops/pallas_kernels.py named in each source.
 //
@@ -14,14 +15,13 @@
 // warp idle through the whole of it.
 //
 // Staging, what the design does about that: a 256-thread block owns a 32x64
-// output tile.  It stages the tile plus a (R + 4) px halo of u8 pixels in
-// shared memory (R = radius - 1, the NMS reach of K7; 0 for K8 and K1), runs
-// FAST, the border and the mask densely over the tile plus its R ring, and
+// output tile.  It stages the tile plus a 4 px halo of u8 pixels in shared
+// memory, runs FAST, the border and the mask densely over the tile, and
 // compacts the corners into a list (warp ballot; the list's order does not
 // matter, each corner's response lands in its own pixel).  Then every thread
 // takes a corner of the list and computes its Harris response straight from
 // the u8 window, Sobel on the fly over the 9x9 neighbourhood: no gradient
-// planes, and the warps stay full.  The response of the region is -inf
+// planes, and the warps stay full.  The response of the tile is -inf
 // outside FAST corners, the border, the image or the mask, so a masked-out
 // pixel neither survives nor suppresses.
 // Build with -fmad=false: the truncations keep Harris products exact, and no
@@ -143,106 +143,69 @@ __device__ __forceinline__ void warp_append(bool take, uint16_t item,
   if (take) list[slot + __popc(m & ((1u << lane) - 1))] = item;
 }
 
-// Shared-memory layout of one block for NMS reach R.
+// Shared-memory layout of one block: the tile's response, its corner list
+// and the u8 pixel window (tile + halo).
+constexpr int kWinH = kTileH + 2 * kHalo;
+constexpr int kWinW = kTileW + 2 * kHalo;
+
 struct Stage {
-  int eh, ew;    // response region: tile + R ring
-  int wh, ww;    // pixel window
-  float* resp;
-  uint16_t* list;   // region indices of the corners
-  int* count;
-  uint8_t* win;
+  float resp[kTileH * kTileW];
+  uint16_t list[kTileH * kTileW];   // tile indices of the corners
+  int count;
+  uint8_t win[kWinH * kWinW];
 };
 
-size_t stage_smem_bytes(int R) {
-  const size_t eh = kTileH + 2 * R, ew = kTileW + 2 * R;
-  return eh * ew * (sizeof(float) + sizeof(uint16_t)) + sizeof(int)
-         + (eh + 2 * kHalo) * (ew + 2 * kHalo);
-}
-
-__device__ __forceinline__ Stage stage_layout(unsigned char* smem, int R) {
-  Stage st;
-  st.eh = kTileH + 2 * R;
-  st.ew = kTileW + 2 * R;
-  st.wh = st.eh + 2 * kHalo;
-  st.ww = st.ew + 2 * kHalo;
-  st.resp = reinterpret_cast<float*>(smem);
-  st.list = reinterpret_cast<uint16_t*>(st.resp + st.eh * st.ew);
-  st.count = reinterpret_cast<int*>(st.list + st.eh * st.ew);  // eh even
-  st.win = reinterpret_cast<uint8_t*>(st.count + 1);
-  return st;
-}
-
-// Fill st.resp with the masked response of the block's tile (origin y0, x0)
-// plus its R ring; response (r, c) is image (y0 - R + r, x0 - R + c).
+// Fill st.resp with the masked response of the block's tile (origin y0, x0).
 // `mask`: (h, w) uint8, nonzero = search here, or NULL for none.
 // blockDim.x must be a multiple of 32.
 __device__ void stage_masked_response(const uint8_t* __restrict__ img,
                                       const uint8_t* __restrict__ mask, int h,
-                                      int w, int threshold, int R, float s2,
-                                      int y0, int x0, const Stage& st) {
+                                      int w, int threshold, float s2, int y0,
+                                      int x0, Stage& st) {
   // 1. pixels of the tile + halo, a warp per window row; zero outside the
   //    image
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  if (threadIdx.x == 0) *st.count = 0;
-  for (int r = warp; r < st.wh; r += warps) {
-    const int gy = y0 - R - kHalo + r;
+  if (threadIdx.x == 0) st.count = 0;
+  for (int r = warp; r < kWinH; r += warps) {
+    const int gy = y0 - kHalo + r;
     const bool row_in = gy >= 0 && gy < h;
     const uint8_t* src = img + static_cast<size_t>(row_in ? gy : 0) * w;
-    for (int c = lane; c < st.ww; c += 32) {
-      const int gx = x0 - R - kHalo + c;
-      st.win[r * st.ww + c] = (row_in && gx >= 0 && gx < w) ? src[gx] : 0;
+    for (int c = lane; c < kWinW; c += 32) {
+      const int gx = x0 - kHalo + c;
+      st.win[r * kWinW + c] = (row_in && gx >= 0 && gx < w) ? src[gx] : 0;
     }
   }
   __syncthreads();
 
-  // 2. the cheap tests at every pixel of the region, a warp per region row,
+  // 2. the cheap tests at every pixel of the tile, a warp per tile row,
   //    corners to the list; response (r, c) is window (r + 4, c + 4)
-  for (int r = warp; r < st.eh; r += warps) {
-    const int gy = y0 - R + r;
+  for (int r = warp; r < kTileH; r += warps) {
+    const int gy = y0 + r;
     const bool row_ok = gy >= kBorder && gy < h - kBorder;
-    for (int base = 0; base < st.ew; base += 32) {
+    for (int base = 0; base < kTileW; base += 32) {
       const int c = base + lane;
-      const int gx = x0 - R + c;
-      bool corner = false;
-      if (c < st.ew) {
-        corner = row_ok && gx >= kBorder && gx < w - kBorder &&
-                 (mask == nullptr ||
-                  mask[static_cast<size_t>(gy) * w + gx] != 0) &&
-                 fast9(st.win + (r + kHalo) * st.ww + (c + kHalo), st.ww,
-                       threshold);
-        st.resp[r * st.ew + c] = neg_inf();
-      }
-      warp_append(corner, static_cast<uint16_t>(r * st.ew + c), st.list,
-                  st.count);
+      const int gx = x0 + c;
+      const bool corner =
+          row_ok && gx >= kBorder && gx < w - kBorder &&
+          (mask == nullptr || mask[static_cast<size_t>(gy) * w + gx] != 0) &&
+          fast9(st.win + (r + kHalo) * kWinW + (c + kHalo), kWinW, threshold);
+      st.resp[r * kTileW + c] = neg_inf();
+      warp_append(corner, static_cast<uint16_t>(r * kTileW + c), st.list,
+                  &st.count);
     }
   }
   __syncthreads();
 
   // 3. Harris at the corners, one corner per thread
-  const int n = *st.count;
+  const int n = st.count;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const int i = st.list[k];
-    const int r = i / st.ew, c = i % st.ew;
-    st.resp[i] = harris_at(st.win + (r + kHalo) * st.ww + (c + kHalo), st.ww,
+    const int r = i / kTileW, c = i % kTileW;
+    st.resp[i] = harris_at(st.win + (r + kHalo) * kWinW + (c + kHalo), kWinW,
                            s2);
   }
   __syncthreads();
-}
-
-// Disc NMS of the staged response at `center` (value v, not -inf): true when
-// no response in the open disc is larger.  Stops at the first larger one.
-// wdx: the disc's half-widths, entry i for dy = i - R
-// (semantics.disc_row_extents).
-__device__ __forceinline__ bool survives(const float* center, float v, int ew,
-                                         int R, const int* wdx) {
-  for (int dy = -R; dy <= R; ++dy) {
-    const int wd = wdx[dy + R];
-    const float* row = center + dy * ew;
-    for (int dx = -wd; dx <= wd; ++dx)
-      if (row[dx] > v) return false;
-  }
-  return true;
 }
 
 // The dense masked response of an image, tile by tile: K8's kernel, and the
@@ -253,11 +216,10 @@ __global__ void __launch_bounds__(kThreads)
 fast_harris_kernel(const uint8_t* __restrict__ img,
                    const uint8_t* __restrict__ mask, int h, int w,
                    int threshold, float s2, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Stage st = stage_layout(smem, 0);
+  __shared__ Stage st;
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
-  stage_masked_response(img, mask, h, w, threshold, 0, s2, y0, x0, st);
+  stage_masked_response(img, mask, h, w, threshold, s2, y0, x0, st);
 
   const int cr = threadIdx.x / kTileW, cc = threadIdx.x % kTileW;
   const int x = x0 + cc;
@@ -265,29 +227,17 @@ fast_harris_kernel(const uint8_t* __restrict__ img,
   for (int k = 0; k < 8; ++k) {
     const int ty = cr * 8 + k;
     if (y0 + ty >= h) return;
-    out[static_cast<size_t>(y0 + ty) * w + x] = st.resp[ty * st.ew + cc];
+    out[static_cast<size_t>(y0 + ty) * w + x] = st.resp[ty * kTileW + cc];
   }
-}
-
-// Set a staged kernel's dynamic shared memory for NMS reach R.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int R, size_t* smem) {
-  *smem = stage_smem_bytes(R);
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
 }
 
 // Launch `fast_harris_kernel` over the whole image.
 cudaError_t launch_fast_harris(const uint8_t* img, const uint8_t* mask, int h,
                                int w, int threshold, float s2, float* out,
                                cudaStream_t stream) {
-  size_t smem;
-  const cudaError_t err = prepare(fast_harris_kernel, 0, &smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  fast_harris_kernel<<<grid, kThreads, smem, stream>>>(img, mask, h, w,
-                                                       threshold, s2, out);
+  fast_harris_kernel<<<grid, kThreads, 0, stream>>>(img, mask, h, w,
+                                                    threshold, s2, out);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // C ABI of the port's hand-written Hopper kernels.
 //
-// Each entry point launches its kernel (K1 two, K6 three) on `stream` (a
+// Each entry point launches its kernel (K1 and K7 two, K6 three, K3 four) on
+// `stream` (a
 // cudaStream_t passed as void*), does not synchronise, allocates nothing,
 // and returns cudaGetLastError() right after the launch (0 on success).
 // Outputs and
@@ -15,8 +16,8 @@
 extern "C" {
 #endif
 
-// Largest nonmax radius of the staged dense kernel K7, whose route serves
-// radius < 10.
+// Largest nonmax radius of K7, whose route serves radius < 10: its NMS
+// kernel stages a tile of the response map with a ring of radius - 1 px.
 #define EFF_STAGED_MAX_RADIUS 9
 
 // K1: FAST-9 + Harris + disc NMS, reduced to 8-row x 1-col cells, any
@@ -42,16 +43,20 @@ int eff_fast_harris_nms_cells(const uint8_t* img, const uint8_t* mask, int h,
 int eff_ic_moments(const uint8_t* img, int h, int w, const int32_t* ys,
                    const int32_t* xs, int n, int32_t* out, void* stream);
 
-// K3: BAD descriptors from an (img_h+1, img_w+1) int32 integral image.
-// kx, ky, cos_s, sin_s, s: (n,) float32 (cos_s = cos*s, sin_s = sin*s);
-// valid: (n,) uint8.  boxes: (5, nbits) float32 rows x1, x2, y1, y2, radius;
-// thresholds: (nbits,).  out: (n, nbits/8) uint8, bits MSB-first.
-int eff_bad_descriptors(const int32_t* integral, int img_h, int img_w,
+// K3: BAD descriptors from the image itself; four kernels on `stream`.
+// img: (img_h, img_w) uint8.  kx, ky, cos_s, sin_s, s: (n,) float32
+// (cos_s = cos*s, sin_s = sin*s, s >= 0); valid: (n,) uint8.  boxes: (5,
+// nbits) float32 rows x1, x2, y1, y2, radius; thresholds: (nbits,); nbits
+// 256 or 512.  integral: (img_h+1)*(img_w+1) int32 scratch, built only when
+// a valid keypoint's window exceeds the shared-memory plan
+// (ops/bad.window_plan); flag: one int32 of scratch.  out: (n, nbits/8)
+// uint8, bits MSB-first.
+int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
                         const float* kx, const float* ky, const float* cos_s,
                         const float* sin_s, const float* s,
                         const uint8_t* valid, int n, const float* boxes,
-                        const float* thresholds, int nbits, uint8_t* out,
-                        void* stream);
+                        const float* thresholds, int nbits, int32_t* integral,
+                        int32_t* flag, uint8_t* out, void* stream);
 
 // K4: HashSIFT patch warp, any keypoint size.  img: (h, w) uint8;
 // kx, ky, cos_s, sin_s: (n,) float32; valid: (n,) uint8.  out: (n, 1024)
@@ -85,13 +90,15 @@ int eff_knn2_hamming(const uint8_t* q, const uint8_t* valid_q, int n1,
                      int32_t* best_idx, int32_t* best, int32_t* second,
                      void* stream);
 
-// K7: FAST-9 + Harris + disc NMS, dense.  img: (h, w) uint8; radius
-// 1..EFF_STAGED_MAX_RADIUS; disc_wdx: DEVICE array of 2*(radius-1)+1
-// half-widths, entry i for dy = i - (radius-1).  out: (h, w) float32, the
-// response of surviving border-valid corners, -inf elsewhere.
+// K7: FAST-9 + Harris + disc NMS, dense; two kernels on `stream`.
+// img: (h, w) uint8; radius 1..EFF_STAGED_MAX_RADIUS; disc_wdx: DEVICE
+// array of 2*(radius-1)+1 half-widths, entry i for dy = i - (radius-1).
+// resp: (h, w) float32 scratch, left holding the response map (as K8's
+// out).  out: (h, w) float32, the response of surviving border-valid
+// corners, -inf elsewhere.
 int eff_fast_harris_nms(const uint8_t* img, int h, int w, int threshold,
                         int radius, const int32_t* disc_wdx, float harris_s2,
-                        float* out, void* stream);
+                        float* resp, float* out, void* stream);
 
 // K8: FAST-9 + Harris, dense.  img: (h, w) uint8.  out: (h, w) float32, the
 // response at border-valid corners, -inf elsewhere.

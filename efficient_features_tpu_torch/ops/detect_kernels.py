@@ -7,13 +7,13 @@ csrc/fast_harris.cu) and `radius_nms` (K9, csrc/radius_nms.cu).  Each
 wrapper runs its plain version (`*_ref`, built from `ops/detect.py`'s dense
 functions) for a CPU tensor and launches its CUDA kernel for a CUDA tensor;
 it never swaps one for the other.  `<wrapper>.launches` counts the
-wrapper's launches: one per call, also for K1, whose call runs two kernels
-(the masked response map, then the NMS and the cell reduction).
+wrapper's launches: one per call, also for K1 and K7, whose calls run two
+kernels (the response map, K8's kernel, then their NMS).
 
-K1 serves every nonmax radius >= 1: it keeps no ring of its tile in shared
-memory, its NMS reads the response map in device memory along the disc's
-segments (`disc_segments`).  K7 stages the tile plus its ring, a plan for
-the small radii of its route, radius < 10 (`STAGED_MAX_RADIUS`).
+K1 serves every nonmax radius >= 1: its NMS reads the response map in
+device memory along the disc's segments (`disc_segments`).  K7's NMS stages
+a tile of the map plus its ring of radius - 1 px in shared memory, a plan
+for the small radii of its route, radius < 10 (`STAGED_MAX_RADIUS`).
 """
 from __future__ import annotations
 
@@ -197,12 +197,13 @@ def fast_harris_nms(image: torch.Tensor, threshold: int,
                          f"1..{STAGED_MAX_RADIUS}, got {radius}")
     h, w = image.shape
     out = torch.empty((h, w), dtype=torch.float32, device=image.device)
+    resp = torch.empty((h, w), dtype=torch.float32, device=image.device)
     lib = _build.library()
     with torch.cuda.device(image.device):
         rc = lib.eff_fast_harris_nms(
             image.data_ptr(), h, w, int(threshold), int(radius),
             _device_disc_table(int(radius), image.device).data_ptr(),
-            float(D.HARRIS_S2), out.data_ptr(),
+            float(D.HARRIS_S2), resp.data_ptr(), out.data_ptr(),
             stream_of(image))
         _build.check(rc, "fast_harris_nms")
         fast_harris_nms.launches += 1

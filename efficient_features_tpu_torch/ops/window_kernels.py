@@ -89,7 +89,15 @@ def bad_descriptors_windows_ref(image, x, y, size, angle, valid, nbits: int,
 def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
                             scale_factor: float = 1.0) -> torch.Tensor:
     """(N, nbits//8) uint8 BAD descriptors of keypoints (x, y, size, angle)
-    on a uint8 image; invalid slots give zero rows."""
+    on a uint8 image; invalid slots give zero rows.
+
+    On a CUDA tensor K3's own kernels turn the image into the rows: a
+    keypoint's boxes come from its window's integral in shared memory
+    (`bad.window_plan`), or, for a window too large for that, from the
+    whole image's integral, which K3 then builds itself (never on a
+    detect_and_compute call, whose windows all fit).  No torch op builds an
+    integral.  The trig is torch glue, as in the JAX package
+    (`_affine_trig`)."""
     if image.device.type == "cpu":
         return bad_descriptors_windows_ref(image, x, y, size, angle, valid,
                                            nbits, scale_factor)
@@ -100,18 +108,19 @@ def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
     out = torch.empty((n, nbits // 8), dtype=torch.uint8, device=image.device)
     if n == 0:
         return out
-    # integral and trig are torch glue, as in the JAX gather path
-    integral = I.integral_image_i32(image)
     args = _affine_args(x, y, size, angle, scale_factor)
     valid_u8 = valid.to(torch.uint8).contiguous()
     require_cuda(valid_u8, torch.uint8, "valid")
+    integral = torch.empty((h + 1) * (w + 1), dtype=torch.int32,
+                           device=image.device)          # scratch
+    flag = torch.empty(1, dtype=torch.int32, device=image.device)
     lib = _build.library()
     with torch.cuda.device(image.device):
         rc = lib.eff_bad_descriptors(
-            integral.data_ptr(), h, w, *(t.data_ptr() for t in args),
+            image.data_ptr(), h, w, *(t.data_ptr() for t in args),
             valid_u8.data_ptr(), n, params.boxes.data_ptr(),
-            params.thresholds.data_ptr(), nbits, out.data_ptr(),
-            stream_of(image))
+            params.thresholds.data_ptr(), nbits, integral.data_ptr(),
+            flag.data_ptr(), out.data_ptr(), stream_of(image))
         _build.check(rc, "bad_descriptors_windows")
         bad_descriptors_windows.launches += 1
     return out

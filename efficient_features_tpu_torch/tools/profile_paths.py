@@ -1,10 +1,21 @@
 """Where the device time goes on the port's main paths, on one CUDA card.
 
     python -m efficient_features_tpu_torch.tools.profile_paths [--out FILE]
+        [--paths dac,dac_bad,...]
 
-Runs each path at 2160x3840 with 40000 features, HashSIFT-256:
+Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
+`dac_bad`:
   - `dac`: `EfficientFeatures.detect_and_compute_async` on the tiled scene
     of `chip_smoke.py` (one 270x480 tile repeated 8x8);
+  - `dac_bad`: the same call with BAD-256, the JAX benchmark's headline
+    configuration (K3 in place of K4 + K5);
+  - `bad_wrapper`: the 8 calls of K3's wrapper (`bad_descriptors_windows`)
+    that one `dac_bad` call makes, replayed: how the wrapper's time splits
+    into its kernels and torch ops;
+  - `bad_wrapper_integral`: the same calls with one 300 px keypoint added
+    to each, whose window no warp holds, so that K3 builds each level's
+    whole integral (`integral_rows_kernel`, `integral_cols_kernel`): the
+    cost of the integral-image design on these levels;
   - `masked`: the same call with `mask=` the ROI of
     `samples.sample_common.roi_mask` (K1 with its mask input);
   - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
@@ -27,8 +38,8 @@ from `torch.profiler` over another CALLS calls, and the device's idle
 share, 1 - device time / wall time, the device time of the sort kernels
 (top-k selection) and that of each of the port's own kernels (csrc/) by
 name.  Prints the TOP kernels by device time and a JSON summary as the last
-line; `--out` also writes the summary to a
-file.
+line; `--out` also writes the summary to a file, `--paths` runs only the
+paths named.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -116,11 +127,14 @@ def profile(fn) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated path names (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
         return 1
     from efficient_features_tpu_torch import EfficientFeatures
+    from efficient_features_tpu_torch.ops import window_kernels as WK
     from efficient_features_tpu_torch.samples import sample_common as SC
     from efficient_features_tpu_torch.samples import \
         sample_image_sequence as SIS
@@ -129,6 +143,8 @@ def main() -> int:
     dev = torch.device("cuda")
     ef = EfficientFeatures(nfeatures=NFEATURES,
                            descriptor_type="hash_sift_256", device="cuda")
+    ef_bad = EfficientFeatures(nfeatures=NFEATURES, descriptor_type="bad_256",
+                               device="cuda")
     ef_fused = EfficientFeatures(nfeatures=NFEATURES,
                                  descriptor_type="hash_sift_256",
                                  device="cuda", hs_fused=True)
@@ -147,6 +163,7 @@ def main() -> int:
                                     ransac_iters=256, device="cuda")
     order = itertools.cycle(frames)     # each step matches the other frame
     paths = {"dac": lambda: ef.detect_and_compute_async(scene),
+             "dac_bad": lambda: ef_bad.detect_and_compute_async(scene),
              "masked": lambda: ef.detect_and_compute_async(scene, mask=roi),
              "small_radius": lambda: ef5.detect_and_compute_async(scene,
                                                                   mask=roi),
@@ -156,6 +173,41 @@ def main() -> int:
              "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
              "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order))}
+    k3 = WK.bad_descriptors_windows
+    k3_calls = []
+
+    def recording(*a, **k):
+        k3_calls.append((a, k))
+        return k3(*a, **k)
+
+    # the wrapper counts on the function its module name is bound to
+    recording.launches = 0
+    WK.bad_descriptors_windows = recording
+    try:
+        ef_bad.detect_and_compute_async(scene)
+    finally:
+        WK.bad_descriptors_windows = k3
+    paths["bad_wrapper"] = lambda: [k3(*a, **k) for a, k in k3_calls]
+
+    def with_big_keypoint(args):
+        image, x, y, size, angle, valid, *rest = args
+        h, w = image.shape
+        one = torch.ones(1, dtype=torch.float32, device=dev)
+        return (image, torch.cat([x, one * (w // 2)]),
+                torch.cat([y, one * (h // 2)]), torch.cat([size, one * 300]),
+                torch.cat([angle, one * -1]),
+                torch.cat([valid, torch.ones(1, dtype=torch.bool,
+                                             device=dev)]), *rest)
+
+    big_calls = [(with_big_keypoint(a), k) for a, k in k3_calls]
+    paths["bad_wrapper_integral"] = lambda: [k3(*a, **k)
+                                             for a, k in big_calls]
+    if args.paths:
+        unknown = set(args.paths.split(",")) - set(paths)
+        if unknown:
+            ap.error(f"unknown paths {sorted(unknown)}; known: {list(paths)}")
+        paths = {k: v for k, v in paths.items()
+                 if k in args.paths.split(",")}
     summary = {"card": hw, "calls": CALLS, "paths": {}}
     for name, fn in paths.items():
         res = profile(fn)

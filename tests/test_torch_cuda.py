@@ -9,8 +9,8 @@ jax it runs on its own:
 Tolerances as in `tests/test_torch_kernels.py`,
 `tests/test_torch_detect_config.py`, `tests/test_torch_hash_sift.py`,
 `tests/test_torch_resize.py` and `tests/test_torch_hs_fused.py`:
-K1 (with and without a mask), K2, K7, K8, K9 and K10 bit-exact, K3 at most
-int(2e-5 * bytes) + 1 differing descriptor bytes, K4 patches and K5 and K11
+K1 (with and without a mask), K2, K7, K8, K9 and K10 bit-exact, K3 byte for
+byte (its box sums are exact integers however they are formed), K4 patches and K5 and K11
 rows |diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
 descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must
 give the same bytes on every run, and K11 the bytes of K5 on K4's patches,
@@ -121,7 +121,67 @@ def test_ic_and_bad_kernels_match_plain(dev):
     for nbits in (256, 512):
         got = WK.bad_descriptors_windows(img, *kp, nbits)
         want = WK.bad_descriptors_windows_ref(img, *kp, nbits)
-        assert int((got != want).sum()) <= _budget(want.numel())
+        assert torch.equal(got, want)
+
+
+def _bad_sizes(case, n, rng):
+    """Keypoint sizes of a K3 case: 31 px (every detect_and_compute call),
+    64-300 px (compute() on the raw image), or both sides of the limit of
+    the shared-memory window (s = 1.125, size 36, `bad.window_plan`)."""
+    if case == "size 31":
+        return np.full(n, 31.0, np.float32)
+    if case == "sizes 64-300":
+        return rng.uniform(64.0, 300.0, n).astype(np.float32)
+    return rng.choice(np.float32([34.0, 35.9, 36.0, 36.1, 37.2, 44.6]), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [256, 512])
+@pytest.mark.parametrize("case", ["size 31", "sizes 64-300",
+                                  "window limit"])
+def test_bad_kernel_bytes_equal_plain(dev, nbits, case):
+    """Zero differing bytes at both bit counts, on keypoints on the four
+    corners, the edges and the 27.125 px branch boundary as well."""
+    img = torch.from_numpy(make_test_image(400, 560, seed=21)).to(dev)
+    if case == "size 31":      # dAC describes on the blurred level
+        from efficient_features_tpu_torch.ops import image as TI
+        img = TI.gaussian_blur7_u8(img)
+    x, y, _, angle, valid = bad_keypoints(400, 560, 2000, seed=len(case))
+    size = _bad_sizes(case, 2000, np.random.default_rng(nbits))
+    kp = [torch.from_numpy(a).to(dev) for a in (x, y, size, angle, valid)]
+    before = WK.bad_descriptors_windows.launches
+    got = WK.bad_descriptors_windows(img, *kp, nbits)
+    assert WK.bad_descriptors_windows.launches == before + 1
+    assert torch.equal(got, WK.bad_descriptors_windows_ref(img, *kp, nbits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(1, 1), (1, 40), (40, 1), (2, 3), (3, 2),
+                                (3, 50), (120, 160)])
+def test_bad_kernel_at_the_edges(dev, hw):
+    """Images 1-3 px tall or wide, keypoints in and around them, n = 1 and
+    every slot invalid."""
+    h, w = hw
+    rng = np.random.default_rng(h * 100 + w)
+    img = torch.from_numpy(rng.integers(0, 256, hw, dtype=np.uint8)).to(dev)
+    n = 64
+    x = rng.uniform(-40.0, w + 40.0, n).astype(np.float32)
+    y = rng.uniform(-40.0, h + 40.0, n).astype(np.float32)
+    x[:4], y[:4] = [0, w - 1, 0, w - 1], [0, 0, h - 1, h - 1]
+    size = rng.uniform(31.0, 300.0, n).astype(np.float32)
+    size[::3] = 31.0
+    angle = rng.uniform(0, 360, n).astype(np.float32)
+    angle[::4] = -1.0
+    kp = [torch.from_numpy(a).to(dev) for a in (x, y, size, angle)]
+    for nbits in (256, 512):
+        for k, valid in ((n, np.ones(n, bool)), (n, np.zeros(n, bool)),
+                         (1, np.ones(1, bool))):
+            args = [t[:k] for t in kp] + [torch.from_numpy(valid).to(dev)]
+            got = WK.bad_descriptors_windows(img, *args, nbits)
+            want = WK.bad_descriptors_windows_ref(img, *args, nbits)
+            assert torch.equal(got, want)
+            if not valid.any():
+                assert not bool(got.any())
 
 
 @pytest.mark.cuda
@@ -302,15 +362,38 @@ def _detect_images():
             make_test_image(141, 203, seed=8), tie_image(), wrap_image())
 
 
+def equal_image(h, w):
+    """One bright pixel every 6 px each way: all corners have the same
+    response, so ties must co-survive (chip_smoke.equal_image)."""
+    cell = np.full((6, 6), 40, np.uint8)
+    cell[3, 3] = 220
+    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
+
+
+def _nms_images():
+    """K7's inputs beyond `_detect_images`: the 4K scene and the scene plus
+    noise, equal responses, an image smaller than one 32x64 tile and widths
+    that are not a multiple of 64."""
+    from efficient_features_tpu_torch.samples import sample_common as SC
+    scene = SC.tiled_scene(2160, 3840, seed=2160, distinct=False)
+    noise = np.random.default_rng(9).integers(-24, 25, scene.shape)
+    noisy = np.clip(scene.astype(np.int32) + noise, 0, 255).astype(np.uint8)
+    return (scene, noisy, equal_image(300, 500), equal_image(31, 63),
+            scene[1084:1115, 1500:1563].copy(), make_test_image(70, 130, seed=3),
+            scene[1000:1097, 1500:1565].copy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("radius", [1, 3, 5, 9])
 def test_fast_harris_nms_kernel_matches_plain(dev, radius):
-    for img in _detect_images():
+    for img in _detect_images() + _nms_images():
         t = torch.from_numpy(img).to(dev)
         before = DK.fast_harris_nms.launches
         got = DK.fast_harris_nms(t, 20, radius)
         assert DK.fast_harris_nms.launches == before + 1
         assert torch.equal(got, DK.fast_harris_nms_ref(t, 20, radius))
+    got = DK.fast_harris_nms(torch.from_numpy(wrap_image()).to(dev), 20,
+                             radius)
     assert bool(torch.isfinite(got[24, 32])) == (radius == 1)   # wrap corner
 
 
