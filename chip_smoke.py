@@ -11,11 +11,20 @@ and K8 dense FAST+Harris (radius 1-9, bit-exact; K7 also on the scene
 plus noise, on equal responses, where ties co-survive, and on an image
 smaller than one tile), K9 disc NMS
 (radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
-moments, K3 BAD (byte for byte at 256 and 512 bits, at size 31 and at
+moments and angles (the moments exact, the angles bit for bit those of the
+plain angle step run on the card, on the 4K scene's slots, on random and
+edge keypoints with invalid slots, and the angle step alone on 2^26 random
+moment pairs, the axes, zeros and |m01| = |m10|), K3 BAD (byte for byte at
+256 and 512 bits, at size 31 and at
 64-300 px, on both sides of its shared-memory window limit, on the image
 corners and the 27.125 px branch boundary, n = 1, every slot invalid,
-images 1-3 px tall or wide), K4 HashSIFT warp (sizes
-31*1.2^k and 300 px), K5 HashSIFT histogram (deterministic, zero patch ->
+images 1-3 px tall or wide), K4 HashSIFT warp (byte for byte at sizes
+31*1.2^k and 300 px and on both sides of its shared-memory window limit,
+on and off the image corners, angle -1, every slot invalid, n = 1, images
+1-3 px tall or wide), the keypoint trig that K3, K4 and K11 compute (bit
+for bit with `ops.bad.affine_trig` on the card at every float32 angle in
+[0, 360) and at -1, size 31, scale factors 1.0 and 1.2), K5 HashSIFT
+histogram (deterministic, zero patch ->
 zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
 2160x3840 frame, odd sizes, an upscale, 16x20 and 8x8 destinations, noise
 and all-255), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
@@ -103,7 +112,6 @@ NFEATURES = 40000
 N_KP = 40000
 ITERS = 20
 BUDGETS = {"bad": 2e-5, "hash_sift": 1e-4}   # share of bytes that may differ
-WARP_SHARE = 1e-3      # K4: |diff| <= 1 on fewer than this share of pixels
 HIST_SHARE = 2e-3      # K5: |diff| <= 1 on fewer than this share of entries
 ANGLE_TOL = 1e-3       # degrees, CPU vs GPU atan2
 SEQ_FRAMES = 3
@@ -307,10 +315,13 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
       K9  4 B read and 1 B of bool written per pixel, one compare per
           pixel and per corner (a response that is not -inf) one compare
           per pixel of the disc;
-      K2  a multiply-add per moment per disc pixel: 4 x 705 per keypoint;
+      K2  4 B of ys and xs and 1 B of valid read and a 4 B angle written
+          per slot; a multiply-add per moment per disc pixel, 4 x 705, per
+          valid slot (an invalid slot reads no pixel);
       K3  the integral image (2 adds per pixel) and per bit two box sums
           (3 adds each) and the weighted compare (3);
-      K4  per sample the affine (4) and the bilinear lerp (8);
+      K4  17 B of keypoint read and the 1 KB row written per slot; per
+          sample of a valid slot the affine (4) and the bilinear lerp (8);
       K5  per patch 1024 B read and 128 B written, and the plan and its
           weights (10788 B) once per call; per patch that is not all zero
           (an all-zero patch has a zero row without arithmetic) 40 per
@@ -353,17 +364,18 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         corners = int((args[0] != D.RESP_SENTINEL).sum())
         return (5 * h * w, 1.0 * h * w + corners * _disc_pixels(args[1]),
                 0.0, 0.0)
-    if name == "ic_moments_windows":
-        img, ys = args[0], args[1]
+    if name == "ic_angles_windows":
+        img, ys, valid = args[0], args[1], args[3]
         n = ys.shape[0]
-        return img.numel() + 16 * n, 4.0 * 705 * n, 0.0, 0.0
+        return (img.numel() + 13 * n, 4.0 * 705 * int(valid.sum()), 0.0,
+                0.0)
     if name == "bad_descriptors_windows":
         img, n, nbits = args[0], args[1].shape[0], args[6]
         return (img.numel() + 17 * n + n * nbits // 8,
                 2.0 * img.numel() + 9.0 * nbits * n, 0.0, 0.0)
     if name == "warp_patches_windows":
-        img, n = args[0], args[1].shape[0]
-        return img.numel() + 17 * n + 1024 * n, 12.0 * 1024 * n, 0.0, 0.0
+        img, n, valid = args[0], args[1].shape[0], int(args[5].sum())
+        return img.numel() + 1041 * n, 12.0 * 1024 * valid, 0.0, 0.0
     if name == "hs_hist_from_patches":
         n = args[0].shape[0]
         live = n - empty_patches(args[0])
@@ -468,6 +480,7 @@ def main() -> int:
     from efficient_features_tpu_torch.ops import bad as B
     from efficient_features_tpu_torch.ops import detect as D
     from efficient_features_tpu_torch.ops import detect_kernels as DK
+    from efficient_features_tpu_torch.ops import hash_sift as HS
     from efficient_features_tpu_torch.ops import image as I
     from efficient_features_tpu_torch.ops import matcher as TM
     from efficient_features_tpu_torch.ops import orientation as O
@@ -485,8 +498,9 @@ def main() -> int:
     kernels = [
         (DK, "fast_harris_nms_cells", DK.fast_harris_nms_cells_ref,
          "fast_harris_nms_cells.cu", tpu + "pallas_kernels.py:648"),
-        (WK, "ic_moments_windows", O.ic_moments,
-         "ic_moments.cu", tpu + "window_kernels.py:861"),
+        (WK, "ic_angles_windows", WK.ic_angles_windows_ref,
+         "ic_moments.cu", f"{tpu}window_kernels.py:861 (_ic_kernel, "
+         f"launched by _ic_angles_windows_impl {tpu}window_kernels.py:934)"),
         (WK, "bad_descriptors_windows", WK.bad_descriptors_windows_ref,
          "bad_descriptors.cu", tpu + "window_kernels.py:534"),
         (WK, "warp_patches_windows", WK.warp_patches_windows_ref,
@@ -516,7 +530,7 @@ def main() -> int:
     names = [n for _, n, *_ in kernels]
     pyramid_kernels = ["resize_u8_kernel"]     # every detect call: 7 launches
     detect_kernels = pyramid_kernels + ["fast_harris_nms_cells",
-                                        "ic_moments_windows"]
+                                        "ic_angles_windows"]
     desc_kernels = {"bad": ["bad_descriptors_windows"],
                     "hash_sift": ["warp_patches_windows",
                                   "hs_hist_from_patches"]}
@@ -815,7 +829,24 @@ def main() -> int:
           "bit-identical to the CPU port")
 
     stamp("K2, K3, K4, K5, K11 against plain")
-    # -- K2: IC moments, exact ----------------------------------------------
+    # -- K2: IC moments exact, angles bit for bit ---------------------------
+    def bits(t):
+        """A float32 tensor's bits, so that equality tells -0 from +0."""
+        return t.contiguous().view(torch.int32)
+
+    def check_angles(label, image, ys_t, xs_t, valid_t):
+        got = WK.ic_angles_windows(image, ys_t, xs_t, valid_t)
+        want = WK.ic_angles_windows_ref(image, ys_t, xs_t, valid_t)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.equal(bits(got),
+                                                         bits(want)):
+            bad = (bits(got) != bits(want)).nonzero()[:5].flatten().tolist()
+            fail(f"K2 {label}: angles differ from the plain angle step at "
+                 f"slots {bad}")
+        errs["ic_angles_windows"] = max(errs["ic_angles_windows"],
+                                        max_abs_err(got, want))
+        return got
+
     ys = rng.integers(0, H, N_KP).astype(np.int32)
     xs = rng.integers(0, W, N_KP).astype(np.int32)
     ys[:8] = [0, 0, H - 1, H - 1, 14, H - 15, 7, H // 2]
@@ -827,8 +858,52 @@ def main() -> int:
     if not torch.equal(m_got, m_ref):
         bad = (m_got != m_ref).any(dim=1).nonzero()[:5].flatten().tolist()
         fail(f"K2 moments differ at keypoints {bad}")
-    errs["ic_moments_windows"] = max_abs_err(m_got, m_ref)
-    print(f"K2 {N_KP} keypoints (edges included): moments exact")
+    ic_valid = torch.from_numpy(rng.random(N_KP) < 0.75).to(dev)
+    ic_valid[:8] = True
+    got = check_angles("random and edge keypoints", img, ys_t, xs_t,
+                       ic_valid)
+    if bool(got[~ic_valid].any()):
+        fail("K2: an invalid slot has a nonzero angle")
+    check_angles("random and edge keypoints, every slot valid", img, ys_t,
+                 xs_t, torch.ones_like(ic_valid))
+    # the slots of a 4K detect call, level by level
+    level_calls = []
+    real_ic = WK.ic_angles_windows
+
+    def recording_ic(*args):
+        level_calls.append(args)
+        return real_ic(*args)
+
+    recording_ic.launches = 0
+    with patched([((WK, "ic_angles_windows"), recording_ic)]):
+        P.detect(img, P.FeatureConfig(nfeatures=NFEATURES))
+    for lvl, args in enumerate(level_calls):
+        check_angles(f"4K scene level {lvl}", *args)
+    n_scene = sum(int(a[3].sum()) for a in level_calls)
+    # the angle step alone: random moments, the axes, zeros, |m01| = |m10|
+    m = rng.integers(-(1 << 21) + 1, 1 << 21, (1 << 26, 2), dtype=np.int32)
+    v = np.array([0, 1, 7, 255, 1 << 20, (1 << 21) - 1], np.int32)
+    special = ([(a, 0) for a in np.concatenate([v, -v])]
+               + [(0, a) for a in np.concatenate([v, -v])]
+               + [(sa * a, sb * a) for a in v for sa in (1, -1)
+                  for sb in (1, -1)])
+    m = torch.from_numpy(np.concatenate([m, np.array(special, np.int32)])
+                         ).to(dev)
+    a_got = WK.ic_angles_from_moments(m)
+    a_ref = WK.ic_angles_from_moments_ref(m)
+    n_diff = int((bits(a_got) != bits(a_ref)).sum())
+    if n_diff:
+        bad = (bits(a_got) != bits(a_ref)).nonzero()[:5].flatten()
+        fail(f"K2's angle step: {n_diff} of {m.shape[0]} angles differ from "
+             f"the plain step, first at moments {m[bad].tolist()}")
+    n_pairs = m.shape[0]
+    del m, a_got, a_ref
+    print(f"K2 {N_KP} keypoints (edges included): moments exact; angles bit "
+          f"for bit the plain angle step's on the card there (a quarter of "
+          f"the slots invalid, then none), on the {n_scene} keypoints of a "
+          f"4K detect call's {len(level_calls)} levels, and on "
+          f"{n_pairs} moment pairs ({n_pairs - len(special)} random with "
+          "|m| < 2^21, the axes, zeros, |m01| = |m10|); invalid slots 0")
 
     # -- K3: BAD byte for byte: size 31, 64-300 px, the window limit, edges -
     kx = rng.uniform(0, W - 1, N_KP).astype(np.float32)
@@ -903,21 +978,104 @@ def main() -> int:
     print("K3 images 1x1, 1x40, 40x1, 2x3, 3x2, 3x50 (64 keypoints in and "
           "around each, all valid / all invalid, and n = 1): byte for byte")
 
-    # -- K4: HashSIFT warp, bit-exact expected --------------------------------
+    # -- K4: HashSIFT warp, byte for byte -----------------------------------
+    def check_warp(label, image, kp, scale=1.0):
+        got = WK.warp_patches_windows(image, *kp, scale)
+        # no 2x2 support fits a 1x1 image, whose plain version's gather
+        # would index out of range: every patch is 0
+        want = torch.zeros_like(got) if image.numel() == 1 else \
+            WK.warp_patches_windows_ref(image, *kp, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
+            fail(f"K4 {label}: {int((got != want).sum())} bytes differ from "
+                 f"the plain version, first at slots {bad}")
+        errs["warp_patches_windows"] = max(errs["warp_patches_windows"],
+                                           max_abs_err(got, want))
+        return got
+
     warp_sizes = np.array([31.0 * 1.2 ** k for k in range(8)] + [300.0],
                           np.float32)
     ksz = warp_sizes[np.arange(N_KP) % len(warp_sizes)]
     wkp = [torch.from_numpy(a).to(dev) for a in (kx, ky, ksz, ka, kvalid)]
-    patches = WK.warp_patches_windows(img, *wkp, 1.0)
-    p_ref = WK.warp_patches_windows_ref(img, *wkp, 1.0)
-    dmax, dshare = u8_diff(patches, p_ref)
-    if dmax > 1 or dshare >= WARP_SHARE:
-        fail(f"K4 patches differ from plain: max {dmax}, share {dshare}")
-    errs["warp_patches_windows"] = max_abs_err(patches, p_ref)
+    patches = check_warp("sizes 31*1.2^k and 300", img, wkp)
+    # the largest window staged is 64 px: size 41.0 (s = 1.28125) fits, 41.1
+    # does not; keypoints around the image too
+    wlim = rng.choice(np.float32([40.0, 40.9, 41.0, 41.1, 41.5, 43.0]), N_KP)
+    ox = rng.uniform(-60.0, W + 60.0, N_KP).astype(np.float32)
+    oy = rng.uniform(-60.0, H + 60.0, N_KP).astype(np.float32)
+    ox[:8], oy[:8] = kx[:8], ky[:8]
+    for what, kp in (("sizes 40-43 px, both sides of the window limit",
+                      (kx, ky, wlim, ka, kvalid)),
+                     ("sizes 31*1.2^k and 300 in and around the image",
+                      (ox, oy, ksz, ka, kvalid))):
+        kp = [torch.from_numpy(a).to(dev) for a in kp]
+        check_warp(what, img, kp)
+        for scale in (1.0, 1.2):
+            if scale != 1.0:
+                check_warp(f"{what}, scale {scale}", img, kp, scale)
+            plan = HS.warp_window_plan(kp[0], kp[1], np.float32(scale)
+                                       * kp[2] / 32.0, H, W)
+            print(f"K4 {what}, scale {scale}: byte for byte; "
+                  f"{int((plan.in_smem & kp[4]).sum())} valid keypoints "
+                  "sample a staged window, "
+                  f"{int((~plan.in_smem & kp[4]).sum())} the image")
+    for shape in ((1, 1), (1, 40), (40, 1), (2, 3), (3, 2), (3, 50)):
+        tiny = torch.from_numpy(edge_rng.integers(0, 256, shape,
+                                                  dtype=np.uint8)).to(dev)
+        n = 64
+        ex = edge_rng.uniform(-40.0, shape[1] + 40.0, n).astype(np.float32)
+        ey = edge_rng.uniform(-40.0, shape[0] + 40.0, n).astype(np.float32)
+        ekp = [torch.from_numpy(a).to(dev) for a in (ex, ey, ksz[:n],
+                                                    ka[:n])]
+        for k, ok in ((n, np.ones(n, bool)), (n, np.zeros(n, bool)),
+                      (1, np.ones(1, bool))):
+            got = check_warp(f"{shape[0]}x{shape[1]} image, n = {k}", tiny,
+                             [t[:k] for t in ekp]
+                             + [torch.from_numpy(ok).to(dev)])
+            if not ok.any() and bool(got.any()):
+                fail("K4: an invalid slot has a nonzero patch")
     print(f"K4 {N_KP} keypoints, sizes "
-          f"{[round(float(v), 2) for v in warp_sizes]} (edges and angle -1 "
-          f"included): max |diff| {dmax}, differing "
-          f"share {dshare:.3e} ({'bit-exact' if dmax == 0 else 'not exact'})")
+          f"{[round(float(v), 2) for v in warp_sizes]} (corners, angle -1 "
+          f"and invalid slots included): byte for byte; images 1x1, 1x40, "
+          "40x1, 2x3, 3x2, 3x50 (64 keypoints in and around each, all valid "
+          "/ all invalid, and n = 1): byte for byte")
+
+    stamp("the keypoint trig of K3, K4 and K11, every angle in [0, 360)")
+    # -- the device trig against ops.bad.affine_trig on the card ------------
+    top = 0x43B40000                      # the bits of 360.0
+    chunk = 1 << 28
+    n_trig = n_trig_diff = 0
+    for scale in (1.0, 1.2):
+        for start in list(range(0, top, chunk)) + [None]:
+            if start is None:             # the last chunk: angle -1 alone
+                angle = torch.tensor([-1.0], device=dev)
+            else:
+                angle = torch.arange(start, min(start + chunk, top),
+                                     dtype=torch.int32,
+                                     device=dev).view(torch.float32)
+            size = torch.full_like(angle, 31.0)
+            got = WK.keypoint_trig(size, angle, scale)
+            s_ref, cos_ref, sin_ref = B.affine_trig(size, angle, scale)
+            want = (s_ref, cos_ref * s_ref, sin_ref * s_ref)
+            del s_ref, cos_ref, sin_ref
+            differ = torch.zeros(angle.shape, dtype=torch.bool, device=dev)
+            for a, b in zip(got, want):
+                differ |= bits(a) != bits(b)
+            nd = int(differ.sum())
+            if nd:
+                at = angle[differ][:5].tolist()
+                fail(f"trig, scale {scale}: {nd} of {angle.numel()} angles "
+                     f"of the chunk from bit pattern {start} give other s, "
+                     f"cos*s or sin*s than ops.bad.affine_trig, first at "
+                     f"{at}")
+            n_trig += angle.numel()
+            n_trig_diff += nd
+            del angle, size, got, want, differ
+    torch.cuda.empty_cache()
+    print(f"trig: {n_trig} (angle, scale) pairs, every float32 angle in "
+          f"[0, 360) and -1 at size 31 and scale factors 1.0 and 1.2: "
+          f"{n_trig_diff} differ from ops.bad.affine_trig on the card")
 
     # -- K5: HashSIFT histogram, deterministic --------------------------------
     zero_rows = torch.arange(5, N_KP, 1001, device=dev)
@@ -1355,7 +1513,7 @@ def main() -> int:
             (kps, desc), counts = drive(
                 label, lambda: ef.detect_and_compute_async(scene,
                                                            mask=m_host),
-                pyramid_kernels + ["ic_moments_windows"] + route
+                pyramid_kernels + ["ic_angles_windows"] + route
                 + desc_kernels[kind],
                 forbid=[k for k in detect_routes if k not in route])
             if any(counts[k] != ef.get_n_levels() for k in route):

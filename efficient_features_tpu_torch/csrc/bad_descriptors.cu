@@ -45,15 +45,18 @@
 //     Keypoints come in any order and any size, so the branch is taken per
 //     keypoint, in the kernel.
 // Lane l forms byte l (and l + 32 at 512 bits), so a row is written with one
-// coalesced store per lane.  cos*s, sin*s and s arrive from torch; m02/m12
-// are rebuilt here from them (as _affine_from_block does), so the box
-// corners are consistent with the rotation.  Build with -fmad=false: the
-// trunc(v + 0.5) box corners must see each product and sum rounded on its
-// own.
+// coalesced store per lane.  s, cos*s and sin*s come from the keypoint's
+// size and angle here, by the trig that K4 and K11 run
+// (`hs::keypoint_trig`, ops/bad.affine_trig op by op), and m02/m12 from
+// those (`hs::keypoint_affine`, as _affine_from_block does), so the box
+// corners are consistent with the rotation and the wrapper runs no torch
+// op.  Build with -fmad=false: the trunc(v + 0.5) box corners must see each
+// product and sum rounded on its own.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "eff_kernels.h"
+#include "hs_common.cuh"
 
 namespace {
 
@@ -280,13 +283,15 @@ __device__ __forceinline__ void write_row(const Boxes& ii, const Keypoint& kp,
 __global__ void __launch_bounds__(kFlagThreads)
 need_integral_kernel(const float* __restrict__ kx,
                      const float* __restrict__ ky,
-                     const float* __restrict__ scale,
-                     const uint8_t* __restrict__ valid, int n, int img_h,
-                     int img_w, int* __restrict__ flag) {
+                     const float* __restrict__ ksize,
+                     const uint8_t* __restrict__ valid, int n, float scale,
+                     int img_h, int img_w, int* __restrict__ flag) {
   const int k = blockIdx.x * kFlagThreads + threadIdx.x;
-  const bool need = k < n && valid[k]
-                    && !window_fits(window_plan(kx[k], ky[k], scale[k],
-                                                img_h, img_w));
+  const bool need =
+      k < n && valid[k]
+      && !window_fits(window_plan(kx[k], ky[k],
+                                  hs::keypoint_scale(ksize[k], scale), img_h,
+                                  img_w));
   if (__syncthreads_or(need) && threadIdx.x == 0) atomicOr(flag, 1);
 }
 
@@ -363,9 +368,9 @@ integral_cols_kernel(int h, int w, const int* __restrict__ flag,
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 bad_kernel(const uint8_t* __restrict__ img, int img_h, int img_w,
            const float* __restrict__ kx, const float* __restrict__ ky,
-           const float* __restrict__ cos_s, const float* __restrict__ sin_s,
-           const float* __restrict__ scale, const uint8_t* __restrict__ valid,
-           int n, const float* __restrict__ boxes,
+           const float* __restrict__ ksize, const float* __restrict__ kangle,
+           const uint8_t* __restrict__ valid, int n, float scale,
+           const float* __restrict__ boxes,
            const float* __restrict__ thresholds, int nbits,
            const int32_t* __restrict__ integral, uint8_t* __restrict__ out) {
   extern __shared__ int32_t smem[];
@@ -381,11 +386,13 @@ bad_kernel(const uint8_t* __restrict__ img, int img_h, int img_w,
   }
   Keypoint kp;
   const float x = kx[k], y = ky[k];
-  kp.c = cos_s[k];
-  kp.sn = sin_s[k];
-  kp.s = scale[k];
-  kp.m02 = __fadd_rn(__fmul_rn(__fadd_rn(-kp.c, kp.sn), 16.0f), x);
-  kp.m12 = __fadd_rn(__fmul_rn(__fsub_rn(-kp.sn, kp.c), 16.0f), y);
+  const hs::Trig trig = hs::keypoint_trig(ksize[k], kangle[k], scale);
+  const hs::Affine a = hs::keypoint_affine(x, y, trig.c, trig.sn);
+  kp.c = a.c;
+  kp.sn = a.sn;
+  kp.s = trig.s;
+  kp.m02 = a.m02;
+  kp.m12 = a.m12;
   // 28*s == 32 * (size/64) * MARGIN bit for bit (both round the same real)
   const float bw = __fmul_rn(28.0f, kp.s);
   kp.in_border = x < bw || __fadd_rn(x, bw) >= static_cast<float>(img_w)
@@ -410,9 +417,9 @@ bad_kernel(const uint8_t* __restrict__ img, int img_h, int img_w,
 
 extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
                                    const float* kx, const float* ky,
-                                   const float* cos_s, const float* sin_s,
-                                   const float* s, const uint8_t* valid,
-                                   int n, const float* boxes,
+                                   const float* size, const float* angle,
+                                   const uint8_t* valid, int n, float scale,
+                                   const float* boxes,
                                    const float* thresholds, int nbits,
                                    int32_t* integral, int32_t* flag,
                                    uint8_t* out, void* stream) {
@@ -426,7 +433,8 @@ extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
   err = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (err != cudaSuccess) return err;
   need_integral_kernel<<<(n + kFlagThreads - 1) / kFlagThreads, kFlagThreads,
-                         0, st>>>(kx, ky, s, valid, n, img_h, img_w, flag);
+                         0, st>>>(kx, ky, size, valid, n, scale, img_h,
+                                  img_w, flag);
   integral_rows_kernel<<<(img_h + kScanWarps - 1) / kScanWarps,
                          kScanWarps * 32, 0, st>>>(img, img_h, img_w, flag,
                                                    integral);
@@ -436,7 +444,7 @@ extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
   if (err != cudaSuccess) return err;
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   bad_kernel<<<blocks, kWarpsPerBlock * 32, kSmemBytes, st>>>(
-      img, img_h, img_w, kx, ky, cos_s, sin_s, s, valid, n, boxes, thresholds,
-      nbits, integral, out);
+      img, img_h, img_w, kx, ky, size, angle, valid, n, scale, boxes,
+      thresholds, nbits, integral, out);
   return cudaGetLastError();
 }

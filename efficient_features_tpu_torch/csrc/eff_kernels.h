@@ -37,33 +37,52 @@ int eff_fast_harris_nms_cells(const uint8_t* img, const uint8_t* mask, int h,
                               int32_t* cellrow, int32_t* cellcnt,
                               void* stream);
 
-// K2: intensity-centroid moments over the radius-15 U_MAX disc.
-// img: (h, w) uint8; ys, xs: (n,) int32.  out: (n, 2) int32 [m01, m10].
-// Reads clamp to the image.
+// K2: intensity-centroid moments over the radius-15 U_MAX disc, and the IC
+// angle.  img: (h, w) uint8; ys, xs: (n,) int32; valid: (n,) uint8, or
+// NULL for all valid.  Writes, where not NULL, moments: (n, 2) int32 [m01,
+// m10], and angles: (n,) float32 degrees in [0, 360], 0 for an invalid
+// slot (ops/orientation.angles_from_moments).  Reads clamp to the image;
+// an invalid slot reads nothing.
 int eff_ic_moments(const uint8_t* img, int h, int w, const int32_t* ys,
-                   const int32_t* xs, int n, int32_t* out, void* stream);
+                   const int32_t* xs, const uint8_t* valid, int n,
+                   int32_t* moments, float* angles, void* stream);
+
+// K2's angle step alone, for tests: angles (n,) float32 of moments (n, 2)
+// int32, every slot valid.
+int eff_ic_angles_from_moments(const int32_t* moments, int n, float* angles,
+                               void* stream);
 
 // K3: BAD descriptors from the image itself; four kernels on `stream`.
-// img: (img_h, img_w) uint8.  kx, ky, cos_s, sin_s, s: (n,) float32
-// (cos_s = cos*s, sin_s = sin*s, s >= 0); valid: (n,) uint8.  boxes: (5,
+// img: (img_h, img_w) uint8.  kx, ky, size, angle: (n,) float32 keypoints
+// (angle in degrees, < 0 for none); valid: (n,) uint8; scale: the scale
+// factor (s = scale * size / 32, size >= 0).  boxes: (5,
 // nbits) float32 rows x1, x2, y1, y2, radius; thresholds: (nbits,); nbits
 // 256 or 512.  integral: (img_h+1)*(img_w+1) int32 scratch, built only when
 // a valid keypoint's window exceeds the shared-memory plan
 // (ops/bad.window_plan); flag: one int32 of scratch.  out: (n, nbits/8)
 // uint8, bits MSB-first.
 int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
-                        const float* kx, const float* ky, const float* cos_s,
-                        const float* sin_s, const float* s,
-                        const uint8_t* valid, int n, const float* boxes,
+                        const float* kx, const float* ky, const float* size,
+                        const float* angle, const uint8_t* valid, int n,
+                        float scale, const float* boxes,
                         const float* thresholds, int nbits, int32_t* integral,
                         int32_t* flag, uint8_t* out, void* stream);
 
 // K4: HashSIFT patch warp, any keypoint size.  img: (h, w) uint8;
-// kx, ky, cos_s, sin_s: (n,) float32; valid: (n,) uint8.  out: (n, 1024)
-// uint8 32x32 patches, row-major; invalid slots get zero rows.
+// kx, ky, size, angle: (n,) float32 keypoints (angle in degrees, < 0 for
+// none); valid: (n,) uint8; scale: the scale factor.  out: (n, 1024) uint8
+// 32x32 patches, row-major, 16-byte aligned; invalid slots get zero rows.
 int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
-                     const float* ky, const float* cos_s, const float* sin_s,
-                     const uint8_t* valid, int n, uint8_t* out, void* stream);
+                     const float* ky, const float* size, const float* angle,
+                     const uint8_t* valid, int n, float scale, uint8_t* out,
+                     void* stream);
+
+// The keypoint trig of K3, K4 and K11 alone, for tests: per keypoint
+// s = scale * size / 32, c = cos * s, sn = sin * s (ops/bad.affine_trig).
+// size, angle, s, c, sn: (n,) float32.
+int eff_keypoint_trig(const float* size, const float* angle, int n,
+                      float scale, float* s, float* c, float* sn,
+                      void* stream);
 
 // K5: HashSIFT histogram.  patches: (n, 1024) uint8, 8-byte aligned;
 // plan: (16, 6) int32 and wpack: (2601,) float32, the spatial bins and
@@ -127,8 +146,8 @@ int eff_resize_u8(const uint8_t* src, int sh, int sw, const int32_t* y0,
 // 8-byte aligned; invalid slots get zero rows.  Rows equal
 // eff_hs_hist(eff_warp_patches(.)) byte for byte.
 int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
-                const float* ky, const float* cos_s, const float* sin_s,
-                const uint8_t* valid, int n, const int32_t* plan,
+                const float* ky, const float* size, const float* angle,
+                const uint8_t* valid, int n, float scale, const int32_t* plan,
                 const float* wpack, float ori_scale, uint8_t* out,
                 void* stream);
 

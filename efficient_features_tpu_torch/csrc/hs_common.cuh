@@ -1,5 +1,6 @@
 // Device code shared by the HashSIFT kernels: K4 (warp_patches.cu), K5
-// (hs_hist.cu) and K11 (hs_desc.cu).
+// (hs_hist.cu) and K11 (hs_desc.cu), and the keypoint trig that K3
+// (bad_descriptors.cu) takes too.
 //
 // K11 is K5 applied to K4's patch without the patch leaving the chip, and
 // its rows must equal K5(K4(.)) byte for byte.  So the per-sample warp and
@@ -19,7 +20,36 @@ constexpr int kPatchPixels = kPatch * kPatch;
 constexpr int kInterior = 30;
 constexpr int kPixels = kInterior * kInterior;
 
-// -- the warp: one bilinear sample under the keypoint affine ----------------
+// -- the keypoint affine ----------------------------------------------------
+
+// ops/bad.DEG2RAD, as float
+constexpr float kDeg2Rad = 0.017453292519943295f;
+
+// The scale s, and c = cos*s, sn = sin*s, of the patch->image affine of a
+// keypoint of `size` and `angle` (degrees; < 0 means no rotation) under the
+// descriptor's scale factor (as float): `ops/bad.affine_trig` and the
+// products by s, op by op.  cosf and sinf are the CUDA math library's, as
+// torch.cos and torch.sin on a CUDA tensor; no fast-math intrinsic.
+struct Trig {
+  float s, c, sn;
+};
+
+__device__ __forceinline__ float keypoint_scale(float size, float scale) {
+  return __fdiv_rn(__fmul_rn(scale, size), 32.0f);
+}
+
+__device__ __forceinline__ Trig keypoint_trig(float size, float angle,
+                                              float scale) {
+  Trig t;
+  t.s = keypoint_scale(size, scale);
+  const bool has = angle >= 0.0f;
+  const float theta = __fmul_rn(angle, kDeg2Rad);
+  const float cs = has ? cosf(theta) : 1.0f;
+  const float sn = has ? sinf(theta) : 0.0f;
+  t.c = __fmul_rn(cs, t.s);
+  t.sn = __fmul_rn(sn, t.s);
+  return t;
+}
 
 // Rows of the keypoint affine: u = c*px - sn*py + m02, v = sn*px + c*py + m12
 // (c = cos*s, sn = sin*s).
@@ -27,9 +57,9 @@ struct Affine {
   float c, sn, m02, m12;
 };
 
-// m02/m12 are rebuilt from c and sn (window_kernels.py:183-189): an m02
-// computed apart from c can be one ulp off and break the exact u = 0 sample
-// of a keypoint on the image corner.
+// m02/m12 are rebuilt from c and sn (ops/bad.affine_rows): an m02 computed
+// apart from c can be one ulp off and break the exact u = 0 sample of a
+// keypoint on the image corner.
 __device__ __forceinline__ Affine keypoint_affine(float x, float y, float c,
                                                   float sn) {
   Affine a;
@@ -40,12 +70,34 @@ __device__ __forceinline__ Affine keypoint_affine(float x, float y, float c,
   return a;
 }
 
+// -- the warp: one bilinear sample under the keypoint affine ----------------
+
+// Where a sample's 2x2 support (image rows vi, vi + 1, columns ui, ui + 1)
+// is read: here the image in device memory; K4 (warp_patches.cu) has a
+// fetch from the keypoint's window of the image staged in shared memory.
+struct GlobalFetch {
+  const uint8_t* img;
+  int w;
+
+  __device__ __forceinline__ void operator()(int vi, int ui, float& p00,
+                                             float& p01, float& p10,
+                                             float& p11) const {
+    const uint8_t* p = img + static_cast<size_t>(vi) * w + ui;
+    p00 = __ldg(p);
+    p01 = __ldg(p + 1);
+    p10 = __ldg(p + w);
+    p11 = __ldg(p + w + 1);
+  }
+};
+
 // Patch pixels p0 .. p0 + 3 (p0 a multiple of 4, so one patch row) as one
 // little-endian 32-bit word.  A sample is valid when its 2x2 support lies in
 // the image; it is then the reference's full-f32 lerp of the four pixels,
-// rounded as min(trunc(t + 0.5), 255); else 0.
-__device__ __forceinline__ uint32_t sample_word(const uint8_t* __restrict__ img,
-                                                int h, int w, const Affine& a,
+// rounded as min(trunc(t + 0.5), 255); else 0.  Only the fetch of the four
+// pixels depends on where they are read from.
+template <typename Fetch>
+__device__ __forceinline__ uint32_t sample_word(const Fetch& fetch, int h,
+                                                int w, const Affine& a,
                                                 int p0) {
   const float py = static_cast<float>(p0 / kPatch);
   uint32_t word = 0;
@@ -63,9 +115,8 @@ __device__ __forceinline__ uint32_t sample_word(const uint8_t* __restrict__ img,
         && vf < static_cast<float>(h - 1)) {
       const int ui = static_cast<int>(uf), vi = static_cast<int>(vf);
       const float du = __fsub_rn(u, uf), dv = __fsub_rn(v, vf);
-      const uint8_t* p = img + static_cast<size_t>(vi) * w + ui;
-      const float p00 = __ldg(p), p01 = __ldg(p + 1);
-      const float p10 = __ldg(p + w), p11 = __ldg(p + w + 1);
+      float p00, p01, p10, p11;
+      fetch(vi, ui, p00, p01, p10, p11);
       const float h0 = __fsub_rn(1.0f, du);
       const float z_top = __fadd_rn(__fmul_rn(h0, p00), __fmul_rn(du, p01));
       const float z_bot = __fadd_rn(__fmul_rn(h0, p10), __fmul_rn(du, p11));

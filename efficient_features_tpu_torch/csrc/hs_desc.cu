@@ -15,7 +15,8 @@
 // atan2, Newton reciprocals and sublane-flatten matmul stand in for what
 // Mosaic lacks and are not carried over; nor is its bound on the keypoint
 // size (`_S_BASE`): pixels are read straight from the image, so one kernel
-// takes keypoints of any size, as K4 does.
+// takes keypoints of any size, as K4 does (K4 reads a small keypoint's
+// window staged in shared memory; the bytes are the same either way).
 //
 // What bounds it on the H100: the histogram's instructions per vote, as in
 // K5 (hs_common.cuh), plus 1024 bilinear samples per keypoint.  Against K4
@@ -33,7 +34,9 @@
 // are 0 without sampling, so `hist_block` takes it for an empty patch and
 // writes its zero row.  Whether a slot is valid is the same for each half
 // of the block, so no thread leaves early and every barrier is reached by
-// all.  Build with -fmad=false, as K4 and K5.
+// all.  Each slot's affine is computed once, by the first threads of the
+// block, from its size and angle (`hs::keypoint_trig`, as K4), so the
+// wrapper runs no torch op.  Build with -fmad=false, as K4 and K5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,16 +48,23 @@ namespace {
 __global__ void __launch_bounds__(hs::kHistThreads)
 hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
                const float* __restrict__ kx, const float* __restrict__ ky,
-               const float* __restrict__ cos_s,
-               const float* __restrict__ sin_s,
-               const uint8_t* __restrict__ valid, int n,
+               const float* __restrict__ ksize,
+               const float* __restrict__ kangle,
+               const uint8_t* __restrict__ valid, int n, float scale,
                const int* __restrict__ plan, const float* __restrict__ wpack,
                float ori_scale, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ hs::Affine s_affine[hs::kBlockPatches];
   hs::HistScratch& s = *reinterpret_cast<hs::HistScratch*>(smem);
   const int t = threadIdx.x;
   const int base = blockIdx.x * hs::kBlockPatches;
   const int np = min(hs::kBlockPatches, n - base);
+  if (t < np && valid[base + t]) {
+    const int k = base + t;
+    const hs::Trig trig = hs::keypoint_trig(ksize[k], kangle[k], scale);
+    s_affine[t] = hs::keypoint_affine(kx[k], ky[k], trig.c, trig.sn);
+  }
+  __syncthreads();
   const int u = t % hs::kBinThreads;   // 4-byte words u, u + 128 of patch p
   constexpr int kSteps = hs::kBlockPatches / 2;
   uint32_t w0[kSteps], w1[kSteps];
@@ -66,10 +76,10 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
     const int k = base + p;
     w0[j] = w1[j] = 0u;
     if (p < np && valid[k]) {
-      const hs::Affine a = hs::keypoint_affine(kx[k], ky[k], cos_s[k],
-                                               sin_s[k]);
-      w0[j] = hs::sample_word(img, h, w, a, u * 4);
-      w1[j] = hs::sample_word(img, h, w, a, (u + hs::kBinThreads) * 4);
+      const hs::GlobalFetch fetch{img, w};
+      w0[j] = hs::sample_word(fetch, h, w, s_affine[p], u * 4);
+      w1[j] = hs::sample_word(fetch, h, w, s_affine[p],
+                              (u + hs::kBinThreads) * 4);
     }
   }
   bool nonzero = false;
@@ -90,9 +100,9 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
 }  // namespace
 
 extern "C" int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
-                           const float* ky, const float* cos_s,
-                           const float* sin_s, const uint8_t* valid, int n,
-                           const int32_t* plan, const float* wpack,
+                           const float* ky, const float* size,
+                           const float* angle, const uint8_t* valid, int n,
+                           float scale, const int32_t* plan, const float* wpack,
                            float ori_scale, uint8_t* out, void* stream) {
   if (h < 1 || w < 1 || n < 1) return cudaErrorInvalidValue;
   const cudaError_t rc = hs::allow_hist_scratch(hs_desc_kernel);
@@ -100,8 +110,8 @@ extern "C" int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
   hs_desc_kernel<<<(n + hs::kBlockPatches - 1) / hs::kBlockPatches,
                    hs::kHistThreads, sizeof(hs::HistScratch),
                    static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, kx, ky, cos_s, sin_s, valid, n, plan, wpack, ori_scale,
-      out);
+      img, h, w, kx, ky, size, angle, valid, n, scale, plan, wpack,
+      ori_scale, out);
   return cudaGetLastError();
 }
 

@@ -6,26 +6,51 @@
 // launched by `_warp_patches_windows_big_impl` :1850), and the XLA gather
 // path that takes keypoints above `_S_CAP` (ops/hash_sift.warp_patches).
 // The TPU splits keypoints by size because each kernel DMAs a fixed window
-// around its keypoints; this kernel reads pixels straight from the image, so
-// one kernel takes keypoints of any size.
+// around its keypoints; here one kernel takes keypoints of any size and
+// decides per keypoint where it reads the pixels.
 //
-// Per sample (px, py) of keypoint k: u = c*px - sn*py + m02,
-// v = sn*px + c*py + m12 (c = cos*s, sn = sin*s), then the reference's
-// full-f32 lerp of the 2x2 support, or 0 where it leaves the image.  The
-// per-sample code is `hs::sample_word` in hs_common.cuh, which the fused
-// kernel K11 (hs_desc.cu) compiles too.
+// Per keypoint (x, y, size, angle) under the scale factor: s, c = cos*s and
+// sn = sin*s (`hs::keypoint_trig`, ops/bad.affine_trig op by op), then per
+// sample (px, py) u = c*px - sn*py + m02, v = sn*px + c*py + m12 and the
+// reference's full-f32 lerp of the 2x2 support, or 0 where it leaves the
+// image (`hs::sample_word`, which the fused kernel K11 compiles too).
 //
-// What bounds it on the H100: 4 scattered u8 reads per sample, 4096 per
-// keypoint, and the 1 KB output row.  The reads of one keypoint fall in a
-// (45*s)^2 px neighbourhood, so they hit L1/L2 (a 4K level is 8 MB and
-// stays in the 50 MB L2); the output write is the only DRAM traffic that
-// scales with the keypoints, 41 MB at 40000.
+// What bounds it on the H100: per sample about 40 float and integer
+// operations and 11 type conversions (int to float and back, floor, trunc),
+// which run at a quarter of the float rate, and 4 pixel loads; the 1 KB
+// output row is the only DRAM traffic that grows with the keypoints (41 MB
+// at 40000).  On a detect_and_compute call the 8 launches are short (2425
+// to 8687 slots a level), so each launch's ramp and tail weigh as much as
+// the samples (`tools/warp_probe` times the shapes below and a floor with
+// the pixel fetch replaced by a constant).
 //
-// Design: one 256-thread block per keypoint, 4 consecutive samples of one
-// patch row per thread, stored as one 32-bit word, so a row is written by
-// 256 coalesced stores.  Invalid slots write a zero row.  Build with
-// -fmad=false: every product and sum rounds on its own, as in the plain
-// version.
+// Design: a 256-thread block per keypoint, 4 samples (one 32-bit word of
+// the patch) a thread, as in the first design, whose shape keeps the most
+// loads of a large keypoint in flight (a warp per keypoint is slower on
+// compute()'s 31-300 px keypoints, `tools/warp_probe`).
+//   - The trig is computed here from the keypoint's size and angle, once,
+//     by thread 0 (`hs::keypoint_trig`), so the wrapper launches this
+//     kernel and runs no torch op.  An invalid slot's block writes its zero
+//     row and leaves.
+//   - Window branch.  Every sample's 2x2 support lies within sup =
+//     ceil(22.63 |s|) + 2 px of (floor x, floor y): the patch corners are
+//     16 sqrt(2) = 22.627 |s| from the keypoint, one more pixel for the
+//     support's far side, one for the rounding of u and v while |x|, |y| <
+//     2^20 (`ops/hash_sift.warp_window_plan`, which this mirrors).  The
+//     block copies that window, clipped to the image, into shared memory
+//     with one aligned 16-byte load per thread and chunk (5 chunks a row,
+//     at most 64 rows: every load in flight at once), each row's chunks as
+//     they lie in the image, so that column c of window row r sits at byte
+//     r * kWinStride + off(r) + c, off(r) the row's offset from its first
+//     aligned chunk.  The samples then read the window.  The in-image test
+//     stays in image coordinates and the arithmetic is `sample_word`'s, so
+//     the bytes are those of the direct branch.  A window of at most
+//     kWinSide x kWinSide px (s up to 1.28, size 41 at scale 1: every
+//     detect_and_compute call) takes it.
+//   - Direct branch, for a larger window (compute() takes keypoints up to
+//     300 px) or a keypoint far off the image: the samples read the image.
+// Build with -fmad=false: every product and sum rounds on its own, as in
+// the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,33 +59,159 @@
 
 namespace {
 
-constexpr int kThreads = hs::kPatchPixels / 4;  // 4 samples per thread
+constexpr int kThreads = hs::kPatchPixels / 4;  // 4 samples a thread
+constexpr int kWinSide = 64;                    // window rows, columns
+constexpr int kRowChunks = 5;                   // 16-byte chunks a row
+constexpr int kWinStride = 16 * kRowChunks;     // bytes a window row
+constexpr float kSupport = 22.63f;       // ops/hash_sift.WARP_SUPPORT
+constexpr float kCoordCap = 1048576.0f;  // 2^20: ops/hash_sift.COORD_CAP
+
+// The keypoint's window: image rows [y0, y0 + h), columns [x0, x0 + w),
+// clipped to the image (h or w 0: no pixel of the image is near).
+struct Window {
+  int y0, x0, h, w;
+  bool fits;   // staged in shared memory
+};
+
+__device__ __forceinline__ Window warp_window(float x, float y, float s,
+                                              int img_h, int img_w) {
+  const int sup = static_cast<int>(fminf(
+                      ceilf(__fmul_rn(kSupport, fabsf(s))), kCoordCap)) + 2;
+  const bool near = fabsf(x) < kCoordCap && fabsf(y) < kCoordCap;
+  const int fy = near ? static_cast<int>(floorf(y)) : 0;
+  const int fx = near ? static_cast<int>(floorf(x)) : 0;
+  Window win;
+  win.y0 = max(fy - sup, 0);
+  win.x0 = max(fx - sup, 0);
+  win.h = max(min(fy + sup, img_h - 1) - win.y0 + 1, 0);
+  win.w = max(min(fx + sup, img_w - 1) - win.x0 + 1, 0);
+  win.fits = near && win.h <= kWinSide && win.w <= kWinSide;
+  return win;
+}
+
+// The 16 bytes at `p` (16-byte aligned); bytes outside [lo, hi) are 0 and
+// not read.
+__device__ __forceinline__ uint4 load16(const uint8_t* p, const uint8_t* lo,
+                                        const uint8_t* hi) {
+  if (p >= lo && p + 16 <= hi)
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 16; ++i)
+    if (p + i >= lo && p + i < hi)
+      b[i / 4] |= static_cast<uint32_t>(__ldg(p + i)) << (8 * (i % 4));
+  return make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// A byte as float, exactly, without a conversion instruction: 2^23 + b
+// has b as its mantissa.
+__device__ __forceinline__ float byte_float(uint32_t b) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f);
+}
+
+// The staged window: image pixel (vi, ui) at byte (vi - y0) * kWinStride +
+// off(vi - y0) + (ui - x0), off(r) = (a0 + r * w) % 16 with a0 the address
+// of pixel (y0, x0) (its low bits).
+struct StagedFetch {
+  const uint8_t* win;
+  int y0, x0;
+  uint32_t a0, w;
+
+  __device__ __forceinline__ void operator()(int vi, int ui, float& p00,
+                                             float& p01, float& p10,
+                                             float& p11) const {
+    const int r = vi - y0, c = ui - x0;
+    const uint32_t off0 = (a0 + static_cast<uint32_t>(r) * w) & 15u;
+    const uint32_t off1 = (off0 + w) & 15u;
+    const uint8_t* p = win + r * kWinStride + off0 + c;
+    const uint8_t* q = win + (r + 1) * kWinStride + off1 + c;
+    p00 = byte_float(p[0]);
+    p01 = byte_float(p[1]);
+    p10 = byte_float(q[0]);
+    p11 = byte_float(q[1]);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const uint8_t* __restrict__ img, int h, int w,
             const float* __restrict__ kx, const float* __restrict__ ky,
-            const float* __restrict__ cos_s, const float* __restrict__ sin_s,
-            const uint8_t* __restrict__ valid, uint8_t* __restrict__ out) {
-  const int k = blockIdx.x;
+            const float* __restrict__ ksize,
+            const float* __restrict__ kangle,
+            const uint8_t* __restrict__ valid, int n, float scale,
+            uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint8_t s_win[kWinSide * kWinStride];
+  __shared__ hs::Affine s_affine;
+  const int k = blockIdx.x, t = threadIdx.x;
   uint32_t* row = reinterpret_cast<uint32_t*>(
       out + static_cast<size_t>(k) * hs::kPatchPixels);
-  if (!valid[k]) {
-    row[threadIdx.x] = 0;
+  if (!valid[k]) {   // uniform per block
+    row[t] = 0u;
     return;
   }
-  const hs::Affine a = hs::keypoint_affine(kx[k], ky[k], cos_s[k], sin_s[k]);
-  row[threadIdx.x] = hs::sample_word(img, h, w, a, threadIdx.x * 4);
+  const float x = kx[k], y = ky[k], size = ksize[k];
+  const Window win = warp_window(x, y, hs::keypoint_scale(size, scale), h, w);
+  if (t == 0) {
+    const hs::Trig trig = hs::keypoint_trig(size, kangle[k], scale);
+    s_affine = hs::keypoint_affine(x, y, trig.c, trig.sn);
+  }
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(img)
+                       + static_cast<size_t>(win.y0) * w + win.x0;
+  if (win.fits) {
+    const uint8_t* hi = img + static_cast<size_t>(h) * w;
+    for (int i = t; i < win.h * kRowChunks; i += kThreads) {
+      const int r = i / kRowChunks, q = i - r * kRowChunks;
+      const uintptr_t first = a0 + static_cast<size_t>(r) * w;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(
+          (first & ~uintptr_t{15}) + 16 * q);
+      *reinterpret_cast<uint4*>(s_win + r * kWinStride + 16 * q) =
+          load16(src, img, hi);
+    }
+  }
+  __syncthreads();
+  const hs::Affine a = s_affine;
+  if (win.fits) {
+    row[t] = hs::sample_word(
+        StagedFetch{s_win, win.y0, win.x0, static_cast<uint32_t>(a0),
+                    static_cast<uint32_t>(w)},
+        h, w, a, 4 * t);
+  } else {
+    row[t] = hs::sample_word(hs::GlobalFetch{img, w}, h, w, a, 4 * t);
+  }
+}
+
+// hs::keypoint_trig of each keypoint: the test entry of the device trig.
+__global__ void trig_kernel(const float* __restrict__ ksize,
+                            const float* __restrict__ kangle, int n,
+                            float scale, float* __restrict__ s,
+                            float* __restrict__ c, float* __restrict__ sn) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (i >= n) return;
+  const hs::Trig t = hs::keypoint_trig(ksize[i], kangle[i], scale);
+  s[i] = t.s;
+  c[i] = t.c;
+  sn[i] = t.sn;
 }
 
 }  // namespace
 
 extern "C" int eff_warp_patches(const uint8_t* img, int h, int w,
                                 const float* kx, const float* ky,
-                                const float* cos_s, const float* sin_s,
-                                const uint8_t* valid, int n, uint8_t* out,
-                                void* stream) {
+                                const float* size, const float* angle,
+                                const uint8_t* valid, int n, float scale,
+                                uint8_t* out, void* stream) {
   if (h < 1 || w < 1 || n < 1) return cudaErrorInvalidValue;
   warp_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, kx, ky, cos_s, sin_s, valid, out);
+      img, h, w, kx, ky, size, angle, valid, n, scale, out);
+  return cudaGetLastError();
+}
+
+extern "C" int eff_keypoint_trig(const float* size, const float* angle, int n,
+                                 float scale, float* s, float* c, float* sn,
+                                 void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  constexpr int kThreads = 256;
+  trig_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(size, angle, n, scale, s,
+                                                     c, sn);
   return cudaGetLastError();
 }

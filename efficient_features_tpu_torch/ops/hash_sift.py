@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -148,6 +149,50 @@ def full_f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+# K4's window (csrc/warp_patches.cu has the same).  A patch corner lies
+# 16 sqrt(2) = 22.627 |s| px from the keypoint (the JAX package's
+# _WARP_SUPPORT rounds it up to 22.63).
+WARP_SUPPORT = 22.63
+WARP_WINDOW_SIDE = 64       # rows and columns of the shared-memory branch
+COORD_CAP = float(1 << 20)  # |x|, |y| of the shared-memory branch
+
+
+class WarpWindow(NamedTuple):
+    """Per keypoint (int32, bool): K4's window is image rows [y0, y0 + h)
+    and columns [x0, x0 + w), clipped to the image (h or w may be 0);
+    `in_smem` whether K4 stages it in shared memory (else it samples the
+    image)."""
+    y0: torch.Tensor
+    x0: torch.Tensor
+    h: torch.Tensor
+    w: torch.Tensor
+    in_smem: torch.Tensor
+
+
+def warp_window_plan(x, y, s, img_h: int, img_w: int) -> WarpWindow:
+    """K4's window of each keypoint (x, y) at affine scale s (float32,
+    finite).
+
+    Every sample's 2x2 support lies within sup = ceil(WARP_SUPPORT |s|) + 2
+    px of (floor(x), floor(y)): one pixel for the support's far side and
+    one for the rounding of the sample's coordinates, which stays below a
+    pixel while |x|, |y| < COORD_CAP.  So the window [floor - sup, floor +
+    sup] clipped to the image holds every sample's support that lies in
+    the image, and the samples read the same pixels from it as from the
+    image."""
+    sup = torch.clamp(torch.ceil(s.abs() * np.float32(WARP_SUPPORT)),
+                      max=COORD_CAP).to(torch.int32) + 2
+    near = (x.abs() < COORD_CAP) & (y.abs() < COORD_CAP)
+    fy = torch.where(near, torch.floor(y), 0.0).to(torch.int32)
+    fx = torch.where(near, torch.floor(x), 0.0).to(torch.int32)
+    y0 = (fy - sup).clamp(min=0)
+    x0 = (fx - sup).clamp(min=0)
+    h = ((fy + sup).clamp(max=img_h - 1) - y0 + 1).clamp(min=0)
+    w = ((fx + sup).clamp(max=img_w - 1) - x0 + 1).clamp(min=0)
+    in_smem = near & (h <= WARP_WINDOW_SIDE) & (w <= WARP_WINDOW_SIDE)
+    return WarpWindow(y0, x0, h, w, in_smem)
 
 
 def warp_patches(image: torch.Tensor, x, y, size, angle,

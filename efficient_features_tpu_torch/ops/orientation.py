@@ -3,7 +3,8 @@
 Port of `efficient_features_tpu/ops/orientation.py`: a gather over the
 circular 31x31 patch.  The integer moments are exact; the final atan2 is
 float32, whose last-ULP differences between backends the descriptor budgets
-absorb.  `ic_moments` is the plain version of the IC kernel (K2).
+absorb.  `ic_moments` and `angles_from_moments` after it are the plain
+version of the IC kernel (K2), which on a card writes the angle itself.
 """
 from __future__ import annotations
 

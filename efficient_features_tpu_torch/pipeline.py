@@ -321,6 +321,6 @@ def compute(image: torch.Tensor, xysa: torch.Tensor, valid: torch.Tensor,
     `compute_jit` and `compute_bucketed_jit`: one call covers every
     keypoint size.  Invalid slots give zero rows.  `hs_fused`: HashSIFT
     through K11 instead of K4 + K5."""
-    x, y, size, ang = xysa.to(torch.float32).unbind(1)
+    x, y, size, ang = xysa.to(torch.float32).T.contiguous()
     return _compute_descriptors(image, x, y, size, ang, valid, kind, nbits,
                                 scale, hs_fused)

@@ -31,7 +31,13 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
     three shifted copies), times per call of 4 frames;
   - `sequence`: one image-sequence step (detect and describe, the masked
     matcher in both directions, RANSAC with 256 iterations), alternating
-    between two frames of a rigid warp of 64 different tiles.
+    between two frames of a rigid warp of 64 different tiles;
+  - `compute_hs`, `compute_bad`: standalone `HashSIFT(1.0, 256).compute`
+    (K4 + K5) and `BAD(1.0, 256).compute` (K3) of 40000 keypoints of
+    31-300 px (half of them on the 31 * 1.2^k / 300 px ladder, every 97th
+    unrotated) on the raw tiled scene.
+The port's own kernels are reported by name, the IC kernel (`ic_kernel`,
+K2) and the warp (`warp_kernel`, K4) among them.
 For each path: the wall time per call (host clock around CALLS calls that
 end in a synchronize, no profiler), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
@@ -53,6 +59,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 H, W = 2160, 3840
@@ -133,7 +140,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
         return 1
-    from efficient_features_tpu_torch import EfficientFeatures
+    from efficient_features_tpu_torch import BAD, EfficientFeatures, HashSIFT
     from efficient_features_tpu_torch.ops import window_kernels as WK
     from efficient_features_tpu_torch.samples import sample_common as SC
     from efficient_features_tpu_torch.samples import \
@@ -162,6 +169,17 @@ def main() -> int:
     step, _ = SIS.streaming_step_fn(ef._cfg, (H, W), homography=True,
                                     ransac_iters=256, device="cuda")
     order = itertools.cycle(frames)     # each step matches the other frame
+    rng = np.random.default_rng(40000)
+    ladder = np.float32([31.0 * 1.2 ** k for k in range(8)] + [300.0])
+    kps = np.stack([rng.uniform(0, W - 1, NFEATURES),
+                    rng.uniform(0, H - 1, NFEATURES),
+                    rng.uniform(31.0, 300.0, NFEATURES),
+                    rng.uniform(0, 360, NFEATURES)], axis=1).astype(np.float32)
+    kps[::2, 2] = ladder[np.arange(NFEATURES)[::2] % len(ladder)]
+    kps[::97, 3] = -1.0
+    kps = torch.from_numpy(kps).to(dev)
+    hs_256, bad_256 = HashSIFT(1.0, 256, device="cuda"), BAD(1.0, 256,
+                                                             device="cuda")
     paths = {"dac": lambda: ef.detect_and_compute_async(scene),
              "dac_bad": lambda: ef_bad.detect_and_compute_async(scene),
              "masked": lambda: ef.detect_and_compute_async(scene, mask=roi),
@@ -172,7 +190,9 @@ def main() -> int:
              "large_radius": lambda: ef64.detect_and_compute_async(scene),
              "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
              "batch4": lambda: ef.detect_and_compute_batch(batch),
-             "sequence": lambda: step(next(order))}
+             "sequence": lambda: step(next(order)),
+             "compute_hs": lambda: hs_256.compute_async(scene, kps),
+             "compute_bad": lambda: bad_256.compute_async(scene, kps)}
     k3 = WK.bad_descriptors_windows
     k3_calls = []
 

@@ -9,20 +9,25 @@ jax it runs on its own:
 Tolerances as in `tests/test_torch_kernels.py`,
 `tests/test_torch_detect_config.py`, `tests/test_torch_hash_sift.py`,
 `tests/test_torch_resize.py` and `tests/test_torch_hs_fused.py`:
-K1 (with and without a mask), K2, K7, K8, K9 and K10 bit-exact, K3 byte for
-byte (its box sums are exact integers however they are formed), K4 patches and K5 and K11
-rows |diff| <= 1 on fewer than 1e-3 and 2e-3 of the entries, HashSIFT
-descriptors at most int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must
-give the same bytes on every run, and K11 the bytes of K5 on K4's patches,
-also at the edges of their 8-patch blocks.
+K1 (with and without a mask), K2 (moments and angles), K7, K8, K9 and K10
+bit-exact, K3 byte for byte (its box sums are exact integers however they
+are formed), K4 byte for byte (the plain version's arithmetic on the same
+pixels, from a staged window or the image), the device trig of K3, K4 and
+K11 bit for bit with `bad.affine_trig` on the card, K5 and K11 rows
+|diff| <= 1 on fewer than 2e-3 of the entries, HashSIFT descriptors at most
+int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must give the same
+bytes on every run, and K11 the bytes of K5 on K4's patches, also at the
+edges of their 8-patch blocks.
 """
 import numpy as np
 import pytest
 import torch
 
 from efficient_features_tpu_torch import EfficientFeatures
+from efficient_features_tpu_torch.ops import bad as TB
 from efficient_features_tpu_torch.ops import detect as TD
 from efficient_features_tpu_torch.ops import detect_kernels as DK
+from efficient_features_tpu_torch.ops import hash_sift as THS
 from efficient_features_tpu_torch.ops import orientation as TO
 from efficient_features_tpu_torch.ops import window_kernels as WK
 from efficient_features_tpu_torch.utils import semantics as TS
@@ -231,7 +236,7 @@ def test_warp_and_hist_kernels_match_plain(dev, size):
     before = (WK.warp_patches_windows.launches,
               WK.hs_hist_from_patches.launches)
     patches = WK.warp_patches_windows(img, *kp, 1.0)
-    _close_u8(patches, WK.warp_patches_windows_ref(img, *kp, 1.0), 1e-3)
+    assert torch.equal(patches, WK.warp_patches_windows_ref(img, *kp, 1.0))
     patches[7] = 0                                    # an all-zero patch
     rows = WK.hs_hist_from_patches(patches)
     assert (WK.warp_patches_windows.launches,
@@ -240,6 +245,159 @@ def test_warp_and_hist_kernels_match_plain(dev, size):
     _close_u8(rows, WK.hs_hist_from_patches_ref(patches), 2e-3)
     assert int(rows[7].sum()) == 0
     assert torch.equal(rows, WK.hs_hist_from_patches(patches))   # determinism
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits, so that equality tells -0 from +0."""
+    return t.contiguous().view(torch.int32)
+
+
+def ic_keypoints(h, w, n, seed):
+    """(ys, xs, valid): random keypoints, those on and next to the image
+    corners and edges and 15 px in, and a quarter of the slots invalid."""
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, h, n).astype(np.int32)
+    xs = rng.integers(0, w, n).astype(np.int32)
+    ys[:10] = [0, 0, h - 1, h - 1, 14, 15, h - 16, h - 15, h // 2, 7]
+    xs[:10] = [0, w - 1, 0, w - 1, 15, 14, w - 15, w - 16, 3, w // 2]
+    valid = rng.random(n) < 0.75
+    valid[:10] = True
+    return ys, xs, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image", ["scene", "noise", "odd width"])
+def test_ic_angles_kernel_exact(dev, image):
+    """K2's angles bit for bit those of `angles_from_moments` of the plain
+    moments run on the card, 0 where invalid; the moments-only entry
+    exact."""
+    img = {"scene": lambda: make_test_image(200, 280, seed=33),
+           "noise": noise_image,
+           "odd width": lambda: make_test_image(97, 131, seed=5)}[image]()
+    h, w = img.shape
+    t = torch.from_numpy(img).to(dev)
+    ys, xs, valid = (torch.from_numpy(a).to(dev)
+                     for a in ic_keypoints(h, w, 3000, h + w))
+    before = (WK.ic_angles_windows.launches, WK.ic_moments_windows.launches)
+    got = WK.ic_angles_windows(t, ys, xs, valid)
+    moments = WK.ic_moments_windows(t, ys, xs)
+    assert (WK.ic_angles_windows.launches,
+            WK.ic_moments_windows.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(moments, TO.ic_moments(t, ys, xs))
+    want = WK.ic_angles_windows_ref(t, ys, xs, valid)
+    assert got.dtype == torch.float32 and torch.equal(_bits(got), _bits(want))
+    assert not bool(got[~valid].any())
+    every = WK.ic_angles_windows(t, ys, xs, torch.ones_like(valid))
+    assert torch.equal(_bits(every), _bits(WK.ic_angles_windows_ref(
+        t, ys, xs, torch.ones_like(valid))))
+
+
+@pytest.mark.cuda
+def test_ic_angle_step_exact(dev):
+    """K2's angle step on 2^20 random moment pairs (|m| < 2^21), the axes,
+    zeros and |m01| = |m10|: bit for bit the plain step on the card."""
+    rng = np.random.default_rng(26)
+    m = rng.integers(-(1 << 21) + 1, 1 << 21, (1 << 20, 2)).astype(np.int32)
+    v = np.array([0, 1, 7, 255, 1 << 20, (1 << 21) - 1], np.int32)
+    special = [(a, 0) for a in np.concatenate([v, -v])] \
+        + [(0, a) for a in np.concatenate([v, -v])] \
+        + [(sa * a, sb * a) for a in v for sa in (1, -1) for sb in (1, -1)]
+    m = torch.from_numpy(np.concatenate([m, np.array(special, np.int32)])
+                         ).to(dev)
+    got = WK.ic_angles_from_moments(m)
+    assert torch.equal(_bits(got), _bits(WK.ic_angles_from_moments_ref(m)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 1.2])
+def test_keypoint_trig_sweep(dev, scale):
+    """The device trig of K3, K4 and K11 on 2^24 float32 angles spread over
+    [0, 360) and angle -1, at size 31 and 300: s, cos*s and sin*s bit for
+    bit those of `bad.affine_trig` run on the card."""
+    top = 0x43B40000                       # the bits of 360.0
+    bits = torch.linspace(0, top - 1, 1 << 24, dtype=torch.float64,
+                          device=dev).to(torch.int32)
+    angle = torch.cat([bits.view(torch.float32),
+                       torch.tensor([-1.0], device=dev)])
+    assert float(angle[:-1].max()) < 360.0
+    for size_px in (31.0, 300.0):
+        size = torch.full_like(angle, size_px)
+        before = WK.keypoint_trig.launches
+        s, c, sn = WK.keypoint_trig(size, angle, scale)
+        assert WK.keypoint_trig.launches == before + 1
+        s_ref, cos_ref, sin_ref = TB.affine_trig(size, angle, scale)
+        for a, b in ((s, s_ref), (c, cos_ref * s_ref), (sn, sin_ref * s_ref)):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def warp_keypoints(h, w, n, seed, sizes):
+    """(x, y, size, angle, valid): random keypoints of the given sizes,
+    those on the image corners and edges and some off the image, angle -1
+    on every 7th, a tenth of the slots invalid."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-50.0, w + 50.0, n).astype(np.float32)
+    y = rng.uniform(-50.0, h + 50.0, n).astype(np.float32)
+    x[:10] = [0, w - 1, 0, w - 1, 0.5, w - 1.5, -3.25, w + 2.0, w / 2, -40.0]
+    y[:10] = [0, 0, h - 1, h - 1, 0.5, h - 1.5, h / 2, 3.0, -0.75, h + 40.0]
+    size = np.asarray(sizes, np.float32)[rng.integers(0, len(sizes), n)]
+    angle = rng.uniform(0, 360, n).astype(np.float32)
+    angle[::7] = -1.0
+    valid = rng.random(n) < 0.9
+    return x, y, size, angle, valid
+
+
+WARP_SIZES = [31.0 * 1.2 ** k for k in range(8)] + [300.0]
+# the largest window K4 stages is 64 px: size 41.0 at scale 1 (s = 1.28125)
+# fits, 41.1 does not
+WARP_LIMIT = [40.0, 40.9, 41.0, 41.1, 41.5, 43.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ladder", "window limit", "size 31"])
+@pytest.mark.parametrize("scale", [1.0, 1.2])
+def test_warp_kernel_exact(dev, case, scale):
+    """K4 byte for byte with its plain version across the window limit, on
+    and off the image, at angle -1, and with invalid slots."""
+    img = torch.from_numpy(make_test_image(300, 420, seed=17)).to(dev)
+    sizes = {"ladder": WARP_SIZES, "window limit": WARP_LIMIT,
+             "size 31": [31.0]}[case]
+    kp = [torch.from_numpy(a).to(dev)
+          for a in warp_keypoints(300, 420, 3000, len(case), sizes)]
+    plan = THS.warp_window_plan(kp[0], kp[1], np.float32(scale) * kp[2] / 32.0,
+                                300, 420)
+    if case != "size 31":        # both branches run
+        assert bool((plan.in_smem & kp[4]).any())
+        assert bool((~plan.in_smem & kp[4]).any())
+    before = WK.warp_patches_windows.launches
+    got = WK.warp_patches_windows(img, *kp, scale)
+    assert WK.warp_patches_windows.launches == before + 1
+    assert torch.equal(got, WK.warp_patches_windows_ref(img, *kp, scale))
+    assert not bool(got[~kp[4]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(1, 1), (1, 40), (40, 1), (2, 3), (3, 2),
+                                (3, 50), (64, 64)])
+def test_warp_kernel_at_the_edges(dev, hw):
+    """Images 1-3 px tall or wide and one window's size, keypoints in and
+    around them of 31-300 px, n = 1 and every slot invalid."""
+    h, w = hw
+    rng = np.random.default_rng(h * 100 + w)
+    img = torch.from_numpy(rng.integers(0, 256, hw, dtype=np.uint8)).to(dev)
+    x, y, size, angle, _ = warp_keypoints(h, w, 64, h + w,
+                                          WARP_SIZES + WARP_LIMIT)
+    kp = [torch.from_numpy(a).to(dev) for a in (x, y, size, angle)]
+    for k, valid in ((64, np.ones(64, bool)), (64, np.zeros(64, bool)),
+                     (1, np.ones(1, bool))):
+        args = [t[:k] for t in kp] + [torch.from_numpy(valid).to(dev)]
+        got = WK.warp_patches_windows(img, *args, 1.0)
+        # no 2x2 support fits a 1x1 image (whose plain version's gather
+        # indexes out of range): every patch is 0
+        want = torch.zeros_like(got) if h * w == 1 else \
+            WK.warp_patches_windows_ref(img, *args, 1.0)
+        assert torch.equal(got, want)
+        if not valid.any():
+            assert not bool(got.any())
 
 
 @pytest.mark.cuda
