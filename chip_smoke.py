@@ -10,7 +10,12 @@ scans its whole disc), K7 dense FAST+Harris+NMS
 and K8 dense FAST+Harris (radius 1-9, bit-exact; K7 also on the scene
 plus noise, on equal responses, where ties co-survive, and on an image
 smaller than one tile), K9 disc NMS
-(radius 3-128, unmasked and under a random mask, bit-exact), K2 IC
+(bit-exact at radius 1, 2, 3, 5, 8 and 9, its staged kernel, and 15, 49,
+64 and 128, its per-pixel scan, on the 4K scene's K8 map unmasked, under
+the ROI and under a random mask, on that map with its responses quantised
+to three levels, so that tied corners must co-survive, and on maps smaller
+than one tile, 65 wide and 33 tall; its kernel-only time at radius 5 and
+9 and one call at radius 64), K2 IC
 moments and angles (the moments exact, the angles bit for bit those of the
 plain angle step run on the card, on the 4K scene's slots, on random and
 edge keypoints with invalid slots, and the angle step alone on 2^26 random
@@ -25,9 +30,12 @@ on and off the image corners, angle -1, every slot invalid, n = 1, images
 for bit with `ops.bad.affine_trig` on the card at every float32 angle in
 [0, 360) and at -1, size 31, scale factors 1.0 and 1.2), K5 HashSIFT
 histogram (deterministic, zero patch ->
-zero row), K10 the pyramid's resize (bit-exact on the 7 levels under a
-2160x3840 frame, odd sizes, an upscale, 16x20 and 8x8 destinations, noise
-and all-255), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
+zero row), K10 the pyramid's resize (bit-exact on the 7 levels under
+2160x3840, 4320x7680 and 1080x1920 frames, odd sizes, source rows that
+all start one byte past a 16-byte boundary, 3x and 4x downscales whose
+tiles read the image directly, an upscale, 16x20 and 8x8 destinations,
+noise and all-255; the kernel-only time of each 4K level beside its
+bound), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
 both within K5's tolerance of their plain versions, on detected keypoints,
 on sizes 31-300 px, on the image corners, on a saturated 0/255 edge image,
 and at the edges of the two kernels' 8-patch blocks: n = 1, one off a
@@ -269,22 +277,65 @@ def patched(module_attrs):
             setattr(m, n, v)
 
 
-def kernel_names(fn) -> dict:
+def kernel_names(fn, want: tuple = ()) -> dict:
     """{kernel name: (launches, device ms)} of the CUDA kernels one call of
-    fn makes (torch.profiler)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    fn makes (torch.profiler).  A lost record can only take a launch away,
+    so a trace in which a name holding some string of `want` has no launch
+    is taken again, twice at most."""
+    for _ in range(3):
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
-            out[e.key] = (e.count, t / 1e3)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+                out[e.key] = (e.count, t / 1e3)
+        if all(any(w in k for k in out) for w in want):
+            break
+        print(f"trace lost launches of {want}, taken again", file=sys.stderr)
     return out
+
+
+def launch_ms(fn, name: str, reps: int = 10) -> list[float]:
+    """Device ms of each launch of the kernels whose name holds `name` that
+    one call of fn makes, in launch order, averaged over `reps` calls after
+    2 (torch.profiler): a kernel's own time, without its wrapper.  A trace
+    that lost a launch's record is taken again, twice at most."""
+    for _ in range(2):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and name in e.name),
+                        key=lambda e: e.time_range.start)
+        if events and len(events) % reps == 0:
+            us = np.array([e.time_range.elapsed_us() for e in events],
+                          np.float64)
+            return (us.reshape(reps, -1).mean(axis=0) / 1e3).tolist()
+    fail(f"{len(events)} launches of {name} traced in {reps} calls")
+
+
+def tied_responses(resp: torch.Tensor) -> torch.Tensor:
+    """`resp` (-inf where there is no corner) with its corners' responses
+    quantised to three levels, 1, 2 and 3 by tercile: a map of heavily tied
+    responses, on which tied corners must co-survive (as in
+    tests/test_torch_cuda.py)."""
+    finite = resp != float("-inf")
+    vals = resp[finite].sort().values
+    n = vals.numel()
+    level = 1.0 + (resp > vals[n // 3]).float() + (resp > vals[2 * n // 3])
+    return torch.where(finite, level, float("-inf"))
 
 
 def host_syncs(fn) -> int:
@@ -335,9 +386,9 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
           on the CUDA cores (n1 * n2; the kernel's fold spends about 3.5
           ops on each).  `int8_form_ms` gives the same product at the
           stated int8 rate as a yardstick only: it is no bound;
-      K10 source and destination pixels once and the six int32 tables; per
-          destination pixel 6 multiplies, 3 adds, the rounding add and the
-          shift (11);
+      K10 source and destination pixels once and the two packed uint32
+          tables, 4 B a destination row and column; per destination pixel
+          6 multiplies, 3 adds, the rounding add and the shift (11);
       K11 the image once, 17 B of keypoint per slot, the 128 B row and
           the plan once; per valid slot K4's affine and lerp per sample,
           and K5's work for each patch that is not all zero (an invalid
@@ -382,7 +433,7 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         return 1152 * n + HS_PLAN_BYTES, HS_PATCH_OPS * live, 0.0, 0.0
     if name == "resize_u8_kernel":
         src, (h, w) = args
-        return src.numel() + h * w + 12 * (h + w), 11.0 * h * w, 0.0, 0.0
+        return src.numel() + h * w + 4 * (h + w), 11.0 * h * w, 0.0, 0.0
     if name == "hs_desc_windows":
         from efficient_features_tpu_torch.ops import window_kernels as WK
         img, n = args[0], args[1].shape[0]
@@ -714,21 +765,48 @@ def main() -> int:
         fail("K7 missed the wrap-run corner")
 
     # -- K9: disc NMS at any radius vs plain, bit-exact -----------------------
+    # radius <= 9 takes K7's staged NMS, radius >= 10 the per-pixel scan
     mask_rng = np.random.default_rng(5)
     rnd = torch.from_numpy(mask_rng.random((H, W)) < 0.5).to(dev)
+    roi_np = SC.roi_mask(H, W)
+    roi = torch.from_numpy(roi_np).to(dev)
     resp8 = DK.fast_harris(img, 20)
-    for label, resp in (("unmasked", resp8),
-                        ("random mask", torch.where(rnd, resp8,
-                                                    D.RESP_SENTINEL))):
+    k9_radii = (1, 2, 3, 5, 8, 9, 15, 49, 64, 128)
+    under_roi = torch.where(roi != 0, resp8, D.RESP_SENTINEL)
+    k9_maps = [("unmasked", resp8), ("ROI", under_roi),
+               ("random mask", torch.where(rnd, resp8, D.RESP_SENTINEL)),
+               ("tied responses", tied_responses(resp8)),
+               ("31x63, less than a tile",
+                resp8[1084:1115, 1500:1563].contiguous()),
+               ("97x65", resp8[1000:1097, 1500:1565].contiguous()),
+               ("33x200", resp8[1000:1033, 1500:1700].contiguous())]
+    for label, resp in k9_maps:
         live = []
-        for radius in (3, 9, 15, 49, 64, 128):
+        for radius in k9_radii:
             got = DK.radius_nms(resp, radius)
             check_same(f"K9 {label} radius {radius}", "radius_nms", got,
                        DK.radius_nms_ref(resp, radius))
             live.append(int(got.sum()))
-        print(f"K9 tiled scene {H}x{W} {label}: bit-exact; survivors at "
-              f"radius 3/9/15/49/64/128: {live}")
-    del resp8
+        corners = int((resp != D.RESP_SENTINEL).sum())
+        if live[0] != corners:
+            fail(f"K9 {label} radius 1: {live[0]} of {corners} corners "
+                 "survive an empty disc")
+        print(f"K9 {label} {tuple(resp.shape)}: bit-exact; {corners} "
+              f"corners, survivors at radius "
+              f"{'/'.join(map(str, k9_radii))}: {live}")
+    for radius in (5, 9):
+        k9_ms = launch_ms(lambda: DK.radius_nms(under_roi, radius),
+                          "radius_nms")[0]
+        b_ms, b_by = bound("radius_nms", [((under_roi, radius), {})])
+        print(f"time K9 kernel only, one launch at radius {radius} on the "
+              f"{H}x{W} map under the ROI: {k9_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} [{hw}]")
+    k9_ms = time_ms(lambda: DK.radius_nms(under_roi, 64), iters=3, warmup=1)
+    b_ms, b_by = bound("radius_nms", [((under_roi, 64), {})])
+    print(f"time K9 one call at radius 64 (the per-pixel scan) on the "
+          f"{H}x{W} map under the ROI: {k9_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by} [{hw}]")
+    del resp8, under_roi, k9_maps
 
     # -- K10: the pyramid's resize vs plain, bit-exact ------------------------
     def check_resize(label, src, dst_hw):
@@ -737,10 +815,31 @@ def main() -> int:
                    "resize_u8_kernel", got, I.resize_u8(src, dst_hw))
         return got
 
-    shapes = S.pyramid_shapes(H, W, 1.2, 8)
-    level = img
-    for lvl in range(1, 8):
-        level = check_resize(f"level {lvl}", level, shapes[lvl])
+    def check_pyramid(label, image):
+        shapes = S.pyramid_shapes(*image.shape, 1.2, 8)
+        levels = [image]
+        for lvl in range(1, 8):
+            levels.append(check_resize(f"{label} level {lvl}", levels[-1],
+                                       shapes[lvl]))
+        return levels
+
+    levels = check_pyramid("4K", img)
+    shapes = [tuple(lv.shape) for lv in levels]
+    k10_ms = launch_ms(lambda: [I.resize_u8_kernel(levels[s - 1], shapes[s])
+                                for s in range(1, 8)], "resize_kernel")
+    k10_bound = [bound("resize_u8_kernel",
+                       [((levels[s - 1], shapes[s]), {})])[0]
+                 for s in range(1, 8)]
+    print(f"time K10 kernel only, the 7 levels of the {H}x{W} pyramid: "
+          f"{sum(k10_ms):.4f} ms (" + " ".join(f"{t:.4f}" for t in k10_ms)
+          + f"), bound {sum(k10_bound):.4f} ms by bytes ("
+          + " ".join(f"{t:.4f}" for t in k10_bound) + f") [{hw}]")
+    level = levels[-1]
+    del levels
+    for label, (ph, pw) in (("8K", (2 * H, 2 * W)), ("1080p", (H // 2,
+                                                                W // 2))):
+        check_pyramid(label, torch.from_numpy(
+            SC.tiled_scene(ph, pw, seed=2160, distinct=False)).to(dev))
     noise = torch.from_numpy(mask_rng.integers(0, 256, (H, W),
                                                dtype=np.uint8)).to(dev)
     white = torch.full((H, W), 255, dtype=torch.uint8, device=dev)
@@ -751,19 +850,32 @@ def main() -> int:
     check_resize("odd crop", crop, crop_shapes[1])
     check_resize("odd crop of noise", noise[:H - 1, :W - 3].contiguous(),
                  crop_shapes[2])
+    # every source row starts one byte past a 16-byte boundary
+    flat = torch.empty(H * W + 16, dtype=torch.uint8, device=dev)
+    shifted = flat[1:1 + H * W].view(H, W)
+    shifted.copy_(noise)
+    check_resize("source rows at 1 mod 16", shifted, shapes[1])
+    # a 3x downscale (tiles of both branches) and a 4x one (every tile
+    # reads the image directly)
+    for dst_hw in ((H // 3, W // 3), (H // 4, W // 4)):
+        staged = I.resize_plan(dst_hw, (H, W)).staged
+        check_resize("downscale", img, dst_hw)
+        print(f"K10 downscale {H}x{W} -> {dst_hw}: bit-exact, "
+              f"{int(staged.sum())} of {staged.size} tiles staged, the "
+              "others read the image")
     check_resize("upscale", level, shapes[4])
     check_resize("tiny", level, (16, 20))
     check_resize("tiny", level, (8, 8))
-    print(f"K10 {H}x{W}: bit-exact on the 7 pyramid levels {shapes[1:]}, on "
-          f"noise and all-255 (stays 255), on a {H - 1}x{W - 3} source to "
-          f"{crop_shapes[1]} and {crop_shapes[2]}, on the upscale "
-          f"{tuple(level.shape)} -> {shapes[4]} and on 16x20 and 8x8 "
-          "destinations")
-    del white, level
+    print(f"K10: bit-exact on the 7 pyramid levels of {H}x{W} {shapes[1:]}, "
+          f"of {2 * H}x{2 * W} and of {H // 2}x{W // 2}, on noise and "
+          f"all-255 (stays 255), on a {H - 1}x{W - 3} source to "
+          f"{crop_shapes[1]} and {crop_shapes[2]}, on source rows that all "
+          f"start unaligned, on {H // 3}x{W // 3} and {H // 4}x{W // 4} "
+          f"downscales, on the upscale {tuple(level.shape)} -> {shapes[4]} "
+          "and on 16x20 and 8x8 destinations")
+    del white, level, flat, shifted
 
     # -- K1 with its ROI mask vs plain, bit-exact -----------------------------
-    roi_np = SC.roi_mask(H, W)
-    roi = torch.from_numpy(roi_np).to(dev)
 
     # every radius >= 10 is K1's: beyond the former shared-memory plan (48),
     # and where corners are dense (uniform noise: no list may drop one)
@@ -1282,15 +1394,11 @@ def main() -> int:
         again = TM.knn2_topk2(q, v1, t, v2)
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             fail(f"K6 {8 * nbytes} bits: two runs differ")
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            TM.knn2_topk2(q, v1, t, v2)
-            torch.cuda.synchronize()
-        k6_launches = {k: sum(e.count for e in prof.key_averages()
-                              if k in e.key)
-                       for k in ("knn2_prep_kernel", "knn2_mma_kernel",
-                                 "knn2_merge_kernel")}
+        k6_names = ("knn2_prep_kernel", "knn2_mma_kernel", "knn2_merge_kernel")
+        k6_kernels = kernel_names(lambda: TM.knn2_topk2(q, v1, t, v2),
+                                  want=k6_names)
+        k6_launches = {n: sum(c for k, (c, _) in k6_kernels.items()
+                              if n in k) for n in k6_names}
         if any(c != 1 for c in k6_launches.values()):
             fail(f"K6: kernel launches of one wrapper call {k6_launches}, "
                  "expected one of each")
@@ -1360,7 +1468,8 @@ def main() -> int:
             k3_calls = last_calls["bad_descriptors_windows"]
             with no_integral():
                 k3_kernels = kernel_names(lambda: [
-                    WK.bad_descriptors_windows(*a, **k) for a, k in k3_calls])
+                    WK.bad_descriptors_windows(*a, **k) for a, k in k3_calls],
+                    want=("bad_kernel",))
             scans = [k for k in k3_kernels
                      if "scan" in k.lower() or "cumsum" in k.lower()]
             if scans or not any("bad_kernel" in k for k in k3_kernels):

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "eff_hs_hist": [_P, _I, _P, _P, ctypes.c_float, _P, _P],
     "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P],
-    "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
     "eff_hs_desc": [_P, _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float, _P,
                     _P, ctypes.c_float, _P, _P],
     "eff_hs_hist_blocks_per_sm": [_P],

@@ -5,6 +5,8 @@
 // float product exact), the 15 px border and an optional ROI mask, into a
 // dense response map; K1 and K7 run their disc NMS on that map in a kernel
 // of their own.  One copy of the selection-feeding math for all three.
+// Below it, the staged disc NMS body that K7 and K9 share
+// (`nms_stage_tile`).
 // They replace the TPU kernels of
 // efficient_features_tpu/ops/pallas_kernels.py named in each source.
 //
@@ -239,6 +241,110 @@ cudaError_t launch_fast_harris(const uint8_t* img, const uint8_t* mask, int h,
   fast_harris_kernel<<<grid, kThreads, 0, stream>>>(img, mask, h, w,
                                                     threshold, s2, out);
   return cudaGetLastError();
+}
+
+// The staged disc NMS of K7 (fast_harris_nms.cu) and K9 (radius_nms.cu) at
+// radius 1..EFF_STAGED_MAX_RADIUS, on a response map that is -inf where
+// there is no corner: a corner survives when no response of its open disc
+// is larger (ties co-survive).  A block per 32x64 tile reads its tile of
+// the map plus the R = radius - 1 ring (R <= 8) into shared memory, keeps
+// the corners of each staged row as a bit mask, and compacts the tile's
+// corners into a list.  A thread per listed corner then tests it against
+// the corners of its disc only: for each disc row (dy = 0, -1, 1, -2, ...,
+// since a larger neighbour is most likely near) it cuts the row's mask to
+// the disc's columns and compares the response of each set bit, stopping
+// at the first larger one.  Its work is a funnel shift per disc row and a
+// compare per corner in the disc, not a load per disc pixel, and no lane
+// walks a disc while the rest of its warp waits on non-corners.  The map
+// itself is never changed: a suppressed corner still suppresses.  The
+// disc's half-widths come from a device table (entry i for dy = i - R,
+// semantics.disc_row_extents), copied to shared memory.  Each kernel then
+// writes the tile from `keep` in its own form.
+constexpr int kNmsMaxReach = EFF_STAGED_MAX_RADIUS - 1;
+constexpr int kNmsRegH = kTileH + 2 * kNmsMaxReach;   // staged rows, at most
+constexpr int kNmsRegW = kTileW + 2 * kNmsMaxReach;   // row stride of val
+constexpr int kNmsMaskWords = 4;   // 3 words hold kNmsRegW bits, the 4th is 0
+
+struct NmsStage {
+  float val[kNmsRegH * kNmsRegW];              // the tile + ring
+  uint32_t bits[kNmsRegH * kNmsMaskWords];     // its corners, per row
+  uint16_t list[kTileH * kTileW];              // the tile's corners
+  uint8_t keep[kTileH * kTileW];               // 1 = a surviving corner
+  int wdx[2 * kNmsMaxReach + 1];
+  int count;
+};
+
+// Fill st for the tile at (y0, x0): val (-inf outside the image) and keep.
+// blockDim.x must be kThreads.
+__device__ __forceinline__ void nms_stage_tile(
+    const float* __restrict__ resp, int h, int w, int R,
+    const int32_t* __restrict__ disc_wdx, int y0, int x0, NmsStage& st) {
+  const int eh = kTileH + 2 * R, ew = kTileW + 2 * R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) st.count = 0;
+  if (threadIdx.x < 2 * R + 1) st.wdx[threadIdx.x] = disc_wdx[threadIdx.x];
+  for (int p = threadIdx.x; p < kTileH * kTileW; p += kThreads) st.keep[p] = 0;
+  __syncthreads();
+
+  // 1. the tile + ring, a warp per staged row, every row's loads in flight
+  //    at once; -inf outside the image
+#pragma unroll
+  for (int j = 0; j < kNmsRegH / (kThreads / 32); ++j) {
+    const int r = warp + j * (kThreads / 32);
+    const int gy = y0 - R + r;
+    const bool row_in = r < eh && gy >= 0 && gy < h;
+#pragma unroll
+    for (int word = 0; word < kNmsMaskWords - 1; ++word) {
+      const int c = word * 32 + lane;
+      const int gx = x0 - R + c;
+      float v = neg_inf();
+      if (row_in && c < ew && gx >= 0 && gx < w)
+        v = resp[static_cast<size_t>(gy) * w + gx];
+      if (r < eh && c < ew) st.val[r * kNmsRegW + c] = v;
+    }
+  }
+  __syncthreads();
+  // each staged row's corners as a bit mask, the tile's corners to the list
+  for (int r = warp; r < eh; r += kThreads / 32) {
+    for (int word = 0; word < kNmsMaskWords; ++word) {
+      const int c = word * 32 + lane;
+      const bool corner = c < ew && st.val[r * kNmsRegW + c] != neg_inf();
+      const unsigned m = __ballot_sync(kFullWarp, corner);
+      if (lane == 0) st.bits[r * kNmsMaskWords + word] = m;
+      const int ty = r - R, tx = c - R;
+      warp_append(corner && ty >= 0 && ty < kTileH && tx >= 0 && tx < kTileW,
+                  static_cast<uint16_t>(ty * kTileW + tx), st.list,
+                  &st.count);
+    }
+  }
+  __syncthreads();
+
+  // 2. each tile corner against the corners of its open disc
+  const int n = st.count;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int p = st.list[k];
+    const int rr = p / kTileW + R, cc = p % kTileW + R;
+    const float v = st.val[rr * kNmsRegW + cc];
+    bool alive = true;
+    for (int i = 0; i <= 2 * R && alive; ++i) {
+      const int dy = (i & 1) ? -((i + 1) >> 1) : (i >> 1);
+      const int wd = st.wdx[dy + R];
+      const int lo = cc - wd;           // >= 0: wd <= R
+      const uint32_t* bits = st.bits + (rr + dy) * kNmsMaskWords + (lo >> 5);
+      const uint64_t pair = bits[0] | (static_cast<uint64_t>(bits[1]) << 32);
+      uint32_t m = static_cast<uint32_t>(pair >> (lo & 31))
+                   & ((2u << (2 * wd)) - 1u);
+      const float* row = st.val + (rr + dy) * kNmsRegW + lo;
+      for (; m; m &= m - 1) {
+        if (row[__ffs(m) - 1] > v) {
+          alive = false;
+          break;
+        }
+      }
+    }
+    if (alive) st.keep[p] = 1;
+  }
+  __syncthreads();
 }
 
 }  // namespace

@@ -16,8 +16,9 @@
 extern "C" {
 #endif
 
-// Largest nonmax radius of K7, whose route serves radius < 10: its NMS
-// kernel stages a tile of the response map with a ring of radius - 1 px.
+// Largest nonmax radius of K7, whose route serves radius < 10, and of K9's
+// staged kernel: their NMS stages a tile of the response map with a ring
+// of radius - 1 px.
 #define EFF_STAGED_MAX_RADIUS 9
 
 // K1: FAST-9 + Harris + disc NMS, reduced to 8-row x 1-col cells, any
@@ -124,22 +125,24 @@ int eff_fast_harris_nms(const uint8_t* img, int h, int w, int threshold,
 int eff_fast_harris(const uint8_t* img, int h, int w, int threshold,
                     float harris_s2, float* out, void* stream);
 
-// K9: disc NMS of a -inf-masked (h, w) float32 response, any radius >= 1.
-// disc_wdx: DEVICE array of 2*(radius-1)+1 half-widths, as for K7.
+// K9: disc NMS of a -inf-masked (h, w) float32 response, any radius >= 1;
+// one kernel on `stream`, K7's staged NMS at radius <= EFF_STAGED_MAX_RADIUS
+// and a per-pixel disc scan above.  resp: finite, -inf where there is no
+// corner.  disc_wdx: DEVICE array of 2*(radius-1)+1 half-widths, as for K7.
 // out: (h, w) uint8 (a torch.bool tensor), 1 where center != -inf and
 // center >= every response in the open disc.
 int eff_radius_nms(const float* resp, int h, int w, int radius,
                    const int32_t* disc_wdx, uint8_t* out, void* stream);
 
-// K10: bilinear u8 resize, 11-bit fixed point.  src: (sh, sw) uint8;
-// y0, y1, wy1: (h,) and x0, x1, wx1: (w,) int32 DEVICE tables, the source
-// indices and the weight of the second one (0..2048) per destination row
-// and column (semantics.resize_axis_coeffs).  dst: (h, w) uint8, 4-byte
-// aligned; h * w must fit int32.
-int eff_resize_u8(const uint8_t* src, int sh, int sw, const int32_t* y0,
-                  const int32_t* y1, const int32_t* wy1, const int32_t* x0,
-                  const int32_t* x1, const int32_t* wx1, uint8_t* dst, int h,
-                  int w, void* stream);
+// K10: bilinear u8 resize, 11-bit fixed point.  src: (sh, sw) uint8, sh
+// and sw at most 2^19.  ytab: (h,) and xtab: (w,) DEVICE tables, one word
+// per destination row and column: i0 | (i1 - i0) << 19 | w1 << 20, the
+// source indices and the weight of the second one (0..2048) of
+// semantics.resize_axis_coeffs (ops/image.resize_table).  dst: (h, w)
+// uint8, any alignment.
+int eff_resize_u8(const uint8_t* src, int sh, int sw, const uint32_t* ytab,
+                  const uint32_t* xtab, uint8_t* dst, int h, int w,
+                  void* stream);
 
 // K11: fused HashSIFT, K5 applied to K4's patch on chip.  Inputs as K4;
 // plan, wpack and ori_scale as K5.  out: (n, 128) uint8, orientation-major,

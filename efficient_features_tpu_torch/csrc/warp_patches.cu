@@ -56,6 +56,7 @@
 
 #include "eff_kernels.h"
 #include "hs_common.cuh"
+#include "u8_rows.cuh"
 
 namespace {
 
@@ -87,19 +88,6 @@ __device__ __forceinline__ Window warp_window(float x, float y, float s,
   win.w = max(min(fx + sup, img_w - 1) - win.x0 + 1, 0);
   win.fits = near && win.h <= kWinSide && win.w <= kWinSide;
   return win;
-}
-
-// The 16 bytes at `p` (16-byte aligned); bytes outside [lo, hi) are 0 and
-// not read.
-__device__ __forceinline__ uint4 load16(const uint8_t* p, const uint8_t* lo,
-                                        const uint8_t* hi) {
-  if (p >= lo && p + 16 <= hi)
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t b[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 16; ++i)
-    if (p + i >= lo && p + i < hi)
-      b[i / 4] |= static_cast<uint32_t>(__ldg(p + i)) << (8 * (i % 4));
-  return make_uint4(b[0], b[1], b[2], b[3]);
 }
 
 // A byte as float, exactly, without a conversion instruction: 2^23 + b

@@ -13,7 +13,9 @@ kernels (the response map, K8's kernel, then their NMS).
 K1 serves every nonmax radius >= 1: its NMS reads the response map in
 device memory along the disc's segments (`disc_segments`).  K7's NMS stages
 a tile of the map plus its ring of radius - 1 px in shared memory, a plan
-for the small radii of its route, radius < 10 (`STAGED_MAX_RADIUS`).
+for the small radii of its route, radius < 10 (`STAGED_MAX_RADIUS`); K9
+runs the same NMS at those radii (with a bool output) and a per-pixel disc
+scan above them.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from .. import _build
 from ..utils import semantics as S
 from . import detect as D
 
-STAGED_MAX_RADIUS = 9    # EFF_STAGED_MAX_RADIUS in csrc/eff_kernels.h (K7)
+STAGED_MAX_RADIUS = 9    # EFF_STAGED_MAX_RADIUS in csrc/eff_kernels.h (K7, K9)
 
 
 def require_cuda(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -258,7 +260,8 @@ def radius_nms_ref(resp: torch.Tensor, radius: int) -> torch.Tensor:
 
 def radius_nms(resp: torch.Tensor, radius: int) -> torch.Tensor:
     """Disc NMS of a -inf-masked (h, w) f32 response, any radius >= 1; see
-    `radius_nms_ref`."""
+    `radius_nms_ref`.  One launch: K7's staged NMS at radius <= 9 (the
+    route's radii), a per-pixel disc scan above."""
     if resp.device.type == "cpu":
         return radius_nms_ref(resp, radius)
     require_cuda(resp, torch.float32, "resp")

@@ -7,8 +7,9 @@ integrals are bit-identical to the JAX package by construction:
   - 7x7 sigma=2 Gaussian, BORDER_REFLECT_101, 16-bit fixed point
   - integral image, int32 with wrapping overflow
 The resize of a CUDA tensor is the kernel K10 (csrc/resize_u8.cu, wrapper
-`resize_u8_kernel`, the counterpart of the TPU's `resize_u8_pallas`);
-`resize_u8` is its plain version and what a CPU tensor takes.
+`resize_u8_kernel`, the counterpart of the TPU's `resize_u8_pallas`; its
+packed tables `resize_table`, its tiles `resize_plan`); `resize_u8` is its
+plain version and what a CPU tensor takes.
 `resize_u8_fast` picks by the tensor's device, and `build_pyramid` calls it.
 The JAX package's `pallas_resize` switch has no counterpart: the two give
 the same bytes, so the card always takes the kernel.
@@ -16,6 +17,7 @@ the same bytes, so the card always takes the kernel.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,13 +41,81 @@ def _resize_tables(dst_n: int, src_n: int, device: torch.device):
             torch.from_numpy(w1).to(device))
 
 
+# K10's tiles (csrc/resize_u8.cu): destination rows x columns of a block,
+# the shared memory that stages a tile's source rows, and the bits of a
+# source index in a packed table word.
+RESIZE_TILE_H = 8
+RESIZE_TILE_W = 256
+RESIZE_STAGE_BYTES = 12288
+RESIZE_INDEX_BITS = 19
+
+
+def resize_table(dst_n: int, src_n: int) -> np.ndarray:
+    """K10's table of one resize axis: (dst_n,) uint32 words
+    i0 | (i1 - i0) << 19 | w1 << 20 of `semantics.resize_axis_coeffs`
+    (i1 - i0 is 0 or 1; w1 is 0..2048)."""
+    if src_n > 1 << RESIZE_INDEX_BITS:
+        raise ValueError(f"K10 takes at most {1 << RESIZE_INDEX_BITS} "
+                         f"source pixels a side, got {src_n}")
+    i0, i1, w1 = (a.astype(np.uint32)
+                  for a in S.resize_axis_coeffs(dst_n, src_n))
+    return (i0 | (i1 - i0) << RESIZE_INDEX_BITS
+            | w1 << (RESIZE_INDEX_BITS + 1))
+
+
+class ResizePlan(NamedTuple):
+    """What each block of K10 reads, one entry per tile (ty, tx), shape
+    (ceil(h / RESIZE_TILE_H), ceil((w + 3) / RESIZE_TILE_W)).  Tile (ty, tx)
+    writes destination rows ty * RESIZE_TILE_H on, and of each row y the
+    columns tx * RESIZE_TILE_W - m(y) on, m(y) the misalignment of the
+    row's first byte (y * w % 4 for an aligned output), clipped to the
+    image; so its columns lie in [c_lo, c_hi).  It reads source rows
+    y0 .. y0 + rows - 1 and columns x0 .. x0 + span - 1, from shared memory
+    at `stride` bytes a row where `staged`, else from the image."""
+    c_lo: np.ndarray
+    c_hi: np.ndarray
+    y0: np.ndarray
+    rows: np.ndarray
+    x0: np.ndarray
+    span: np.ndarray
+    stride: np.ndarray
+    staged: np.ndarray
+
+
+def resize_plan(dst_hw: tuple[int, int],
+                src_hw: tuple[int, int]) -> ResizePlan:
+    """K10's tiles of a (src_hw) -> (dst_hw) resize, as the kernel computes
+    them from its tables (`tile_plan` in csrc/resize_u8.cu)."""
+    (h, w), (sh, sw) = dst_hw, src_hw
+    y0t, y1t, _ = S.resize_axis_coeffs(h, sh)
+    x0t, x1t, _ = S.resize_axis_coeffs(w, sw)
+    r0 = np.arange(0, h, RESIZE_TILE_H)
+    last = np.minimum(r0 + RESIZE_TILE_H, h) - 1
+    tx = np.arange(-(-(w + 3) // RESIZE_TILE_W))
+    c_lo = np.maximum(tx * RESIZE_TILE_W - 3, 0)
+    c_hi = np.minimum(tx * RESIZE_TILE_W + RESIZE_TILE_W, w)
+    y0 = y0t[r0].astype(np.int64)
+    rows = y1t[last] - y0 + 1
+    x0 = x0t[c_lo].astype(np.int64)
+    span = x1t[c_hi - 1] - x0 + 1
+    stride = 16 * ((span + 30) // 16)
+    cells = (len(r0), len(tx))
+    staged = ((rows <= RESIZE_STAGE_BYTES // 16)[:, None]
+              & (rows[:, None] * stride[None, :] <= RESIZE_STAGE_BYTES))
+    return ResizePlan(*(np.broadcast_to(a, cells) for a in (
+        c_lo[None, :], c_hi[None, :], y0[:, None], rows[:, None],
+        x0[None, :], span[None, :], stride[None, :], staged)))
+
+
 @functools.lru_cache(maxsize=128)
-def _resize_tables_i32(dst_n: int, src_n: int,
-                       device: torch.device) -> torch.Tensor:
-    """(3, dst_n) int32 rows i0, i1, w1 of one resize axis, K10's tables."""
-    return torch.from_numpy(np.stack(
-        [a.astype(np.int32) for a in S.resize_axis_coeffs(dst_n, src_n)])
-    ).to(device)
+def _resize_launch(h: int, w: int, sh: int, sw: int,
+                   device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """K10's packed tables of one (dst, src) shape on `device`: the (h + w,)
+    tensor (held here, so that its pointers stay valid) and the raw
+    pointers of its y and x parts."""
+    t = torch.from_numpy(np.concatenate(
+        [resize_table(h, sh), resize_table(w, sw)]).view(np.int32)).to(device)
+    return t, t.data_ptr(), t.data_ptr() + 4 * h
 
 
 @functools.lru_cache(maxsize=128)
@@ -75,8 +145,9 @@ def resize_u8_kernel(src: torch.Tensor,
                      dst_hw: tuple[int, int]) -> torch.Tensor:
     """K10: `resize_u8` of a contiguous (H, W) uint8 CUDA tensor, bit for
     bit, in one kernel launch.  The index and weight tables stay the host's
-    (`semantics.resize_axis_coeffs`, float64 math), cached on the device per
-    shape."""
+    (`semantics.resize_axis_coeffs`, float64 math), packed by `resize_table`
+    and cached on the device per shape with their pointers, so that a call
+    does one lookup, one allocation and one launch."""
     require_cuda(src, torch.uint8, "src")
     if src.dim() != 2:
         raise ValueError(f"src must be 2-D, got shape {tuple(src.shape)}")
@@ -84,17 +155,11 @@ def resize_u8_kernel(src: torch.Tensor,
     sh, sw = src.shape
     if min(h, w, sh, sw) < 1:
         raise ValueError(f"cannot resize {sh}x{sw} to {h}x{w}")
-    ty = _resize_tables_i32(h, sh, src.device)
-    tx = _resize_tables_i32(w, sw, src.device)
+    _, ytab, xtab = _resize_launch(h, w, sh, sw, src.device)
     out = torch.empty((h, w), dtype=torch.uint8, device=src.device)
-    if out.data_ptr() % 4:
-        raise ValueError("the output must be 4-byte aligned (the kernel "
-                         "stores 32-bit words)")
     lib = _build.library()
     with torch.cuda.device(src.device):
-        rc = lib.eff_resize_u8(src.data_ptr(), sh, sw,
-                               *(t.data_ptr() for t in ty.unbind(0)),
-                               *(t.data_ptr() for t in tx.unbind(0)),
+        rc = lib.eff_resize_u8(src.data_ptr(), sh, sw, ytab, xtab,
                                out.data_ptr(), h, w, stream_of(src))
         _build.check(rc, "resize_u8_kernel")
         resize_u8_kernel.launches += 1

@@ -43,9 +43,10 @@ end in a synchronize, no profiler), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
 share, 1 - device time / wall time, the device time of the sort kernels
 (top-k selection) and that of each of the port's own kernels (csrc/) by
-name.  Prints the TOP kernels by device time and a JSON summary as the last
-line; `--out` also writes the summary to a file, `--paths` runs only the
-paths named.
+name, and the device time of each launch of K10 (`resize_kernel`, the
+pyramid's 7 levels, in launch order, averaged over the calls).  Prints the
+TOP kernels by device time and a JSON summary as the last line; `--out`
+also writes the summary to a file, `--paths` runs only the paths named.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -67,6 +68,7 @@ NFEATURES = 40000
 CALLS = 10
 TOP = 16         # kernels listed by name; the rest are summed
 NAME = 100       # characters kept of a kernel's name
+RESIZE = "resize_kernel"    # K10's kernel, listed launch by launch
 
 
 def card() -> str:
@@ -95,6 +97,20 @@ def port_kernel(name: str, ours: frozenset) -> str | None:
         return None
     short = name[len(prefix):].split("(")[0]
     return short if short.split("<")[0] in ours else None
+
+
+def launches_ms(events, name: str, calls: int) -> list[float] | None:
+    """Device ms of each launch of the CUDA kernels whose name holds `name`
+    in one call, in launch order, averaged over the `calls` calls that a
+    profiler's `events()` traced; None where the trace lost a launch's
+    record (a count of launches that `calls` does not divide)."""
+    found = sorted((e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and name in e.name), key=lambda e: e.time_range.start)
+    if len(found) % calls:
+        return None
+    us = np.array([e.time_range.elapsed_us() for e in found], np.float64)
+    return (us.reshape(calls, -1).mean(axis=0) / 1e3).tolist()
 
 
 def profile(fn) -> dict:
@@ -128,7 +144,8 @@ def profile(fn) -> dict:
             "other_ms": sum(v for _, v in ranked[TOP:]),
             "sort_ms": sum(v for k, v in ranked if "Sort" in k),
             "port_kernels_ms": {port_kernel(k, ours): v for k, v in ranked
-                                if port_kernel(k, ours)}}
+                                if port_kernel(k, ours)},
+            "resize_launches_ms": launches_ms(prof.events(), RESIZE, CALLS)}
 
 
 def main() -> int:
@@ -242,6 +259,12 @@ def main() -> int:
         print(f"  {res['sort_ms']:9.3f} ms  in sort kernels, all told")
         print("  the port's kernels: " + ", ".join(
             f"{k} {v:.3f}" for k, v in res["port_kernels_ms"].items()))
+        if res["resize_launches_ms"] is None:
+            print(f"  {RESIZE} by launch: not listed, the trace lost a "
+                  "launch's record")
+        elif res["resize_launches_ms"]:
+            print(f"  {RESIZE} by launch: " + " ".join(
+                f"{v:.4f}" for v in res["resize_launches_ms"]))
     line = json.dumps(summary)
     if args.out:
         with open(args.out, "w") as f:

@@ -53,6 +53,17 @@ def tie_mask():
     return mask
 
 
+def tied_responses(resp: torch.Tensor) -> torch.Tensor:
+    """`resp` (-inf where there is no corner) with its corners' responses
+    quantised to three levels, 1, 2 and 3 by tercile: a map of heavily tied
+    responses, on which tied corners must co-survive."""
+    finite = resp != TD.RESP_SENTINEL
+    vals = resp[finite].sort().values
+    n = vals.numel()
+    level = 1.0 + (resp > vals[n // 3]).float() + (resp > vals[2 * n // 3])
+    return torch.where(finite, level, TD.RESP_SENTINEL)
+
+
 def wrap_image():
     """A FAST-9 darker arc that wraps the index-0 tap of the circle."""
     img = np.full((48, 64), 160, np.uint8)
@@ -566,13 +577,18 @@ def test_fast_harris_kernel_matches_plain(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("radius", [3, 9, 15, 49, 64, 128])
+@pytest.mark.parametrize("radius", [1, 3, 5, 8, 9, 15, 49, 64, 128])
 def test_radius_nms_kernel_matches_plain(dev, radius):
+    """K9 at the radii of its staged kernel (<= 9) and of its per-pixel
+    scan, unmasked, under a random mask, on tied responses and on maps
+    smaller than a tile or 65 wide."""
     img = torch.from_numpy(make_test_image(200, 280, seed=33)).to(dev)
     resp = DK.fast_harris(img, 20)
     keep = torch.from_numpy(np.random.default_rng(radius).random((200, 280))
                             < 0.5).to(dev)
-    for r in (resp, torch.where(keep, resp, TD.RESP_SENTINEL)):
+    for r in (resp, torch.where(keep, resp, TD.RESP_SENTINEL),
+              tied_responses(resp), resp[60:91, 100:163].contiguous(),
+              resp[50:147, 100:165].contiguous()):
         before = DK.radius_nms.launches
         got = DK.radius_nms(r, radius)
         assert DK.radius_nms.launches == before + 1
@@ -638,11 +654,15 @@ def test_masked_tie_fallback_on_the_card_matches_the_cpu(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("src_hw,dst_hw", [
     ((200, 300), (167, 250)), ((200, 300), (16, 20)), ((60, 90), (97, 151)),
-    ((131, 203), (109, 169)), ((9, 10), (8, 8)), ((50, 70), (41, 59))])
+    ((131, 203), (109, 169)), ((9, 10), (8, 8)), ((50, 70), (41, 59)),
+    ((2160, 3840), (1800, 3200)), ((97, 333), (81, 277)),
+    ((2160, 3840), (540, 960))])
 def test_resize_kernel_matches_plain(dev, src_hw, dst_hw):
-    """K10 against `resize_u8`, bit for bit: a pyramid step, a tiny level,
-    an upscale, widths that are no multiple of 4, a size whose last group
-    of 4 is partial (41 * 59), on a scene, on noise and on all-255."""
+    """K10 against `resize_u8`, bit for bit: pyramid steps (the first of a
+    4K frame among them), a tiny level, an upscale, widths that are no
+    multiple of 4, a size whose last word is partial (41 * 59), a 4x
+    downscale whose tiles read the image directly, on a scene, on noise and
+    on all-255."""
     from efficient_features_tpu_torch.ops import image as TI
     rng = np.random.default_rng(sum(dst_hw))
     imgs = [rng.integers(0, 256, src_hw, dtype=np.uint8),
@@ -659,6 +679,23 @@ def test_resize_kernel_matches_plain(dev, src_hw, dst_hw):
         assert torch.equal(got.cpu(), TI.resize_u8(t.cpu(), dst_hw))
     with pytest.raises(ValueError, match="contiguous"):
         TI.resize_u8_kernel(t.t(), dst_hw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_resize_kernel_on_rows_that_start_unaligned(dev, offset):
+    """A source view `offset` bytes past an aligned allocation: K10 stages
+    each row's aligned chunks as they lie."""
+    from efficient_features_tpu_torch.ops import image as TI
+    img = torch.from_numpy(np.random.default_rng(offset).integers(
+        0, 256, (300, 512), dtype=np.uint8)).to(dev)
+    flat = torch.zeros(300 * 512 + 16, dtype=torch.uint8, device=dev)
+    src = flat[offset:offset + 300 * 512].view(300, 512)
+    src.copy_(img)
+    assert src.is_contiguous() and src.data_ptr() % 16 == offset
+    for dst_hw in ((250, 427), (75, 128), (389, 701)):
+        assert torch.equal(TI.resize_u8_kernel(src, dst_hw),
+                           TI.resize_u8(img, dst_hw))
 
 
 @pytest.mark.cuda

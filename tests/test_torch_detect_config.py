@@ -28,7 +28,8 @@ from efficient_features_tpu_torch.ops import detect_kernels as DK
 from efficient_features_tpu_torch.samples.sample_common import roi_mask
 from efficient_features_tpu_torch.utils import semantics as TS
 
-from test_torch_cuda import tie_image, tie_mask, wrap_image
+from test_torch_cuda import (tie_image, tie_mask, tied_responses,
+                             wrap_image)
 from util import make_test_image
 
 
@@ -91,7 +92,7 @@ def test_fast_harris_plain_matches_pallas(which):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("radius", [3, 7, 15, 49])
+@pytest.mark.parametrize("radius", [1, 3, 5, 7, 9, 15, 49])
 def test_radius_nms_plain_matches_pallas(radius, masked):
     img = make_test_image(200, 280, seed=33)
     resp = DK.fast_harris(_t(img), 20)
@@ -102,6 +103,20 @@ def test_radius_nms_plain_matches_pallas(radius, masked):
     got = DK.radius_nms(resp, radius)
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 2
+
+
+@pytest.mark.parametrize("radius", [1, 5, 9, 15])
+def test_radius_nms_plain_matches_pallas_on_tied_responses(radius):
+    """A map whose corners take three response levels: tied corners must
+    co-survive in both."""
+    img = make_test_image(200, 280, seed=33)
+    resp = tied_responses(DK.fast_harris(_t(img), 20))
+    want = np.asarray(PK.radius_nms(jnp.asarray(resp.numpy()), radius))
+    got = DK.radius_nms(resp, radius)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if radius == 1:         # an empty disc: every corner survives
+        np.testing.assert_array_equal(want, np.isfinite(resp.numpy()))
     assert want.sum() > 2
 
 

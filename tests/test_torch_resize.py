@@ -79,31 +79,126 @@ def test_resize_extremes_match_jax(kind):
                                                    ((50, 70), (41, 59))])
 def test_kernel_formula_from_the_int32_tables(src_hw, dst_hw):
     """What K10 evaluates per destination pixel, in numpy int32 from the
-    tables the wrapper hands it (`_resize_tables_i32`), over the flattened
-    destination as the kernel walks it: equal to `resize_u8`."""
+    packed tables the wrapper hands it (`resize_table`, unpacked as the
+    kernel unpacks them: to `semantics.resize_axis_coeffs`), over its tiles
+    (`resize_plan`): equal to `resize_u8`."""
     img = np.random.default_rng(sum(dst_hw)).integers(0, 256, src_hw,
                                                       dtype=np.uint8)
     (h, w), (sh, sw) = dst_hw, src_hw
-    ty = TI._resize_tables_i32(h, sh, torch.device("cpu"))
-    tx = TI._resize_tables_i32(w, sw, torch.device("cpu"))
-    assert ty.dtype == tx.dtype == torch.int32 and ty.is_contiguous()
-    assert tuple(ty.shape) == (3, h) and tuple(tx.shape) == (3, w)
-    for t, (d, s) in ((ty, (h, sh)), (tx, (w, sw))):
-        for row, want in zip(t.numpy(), TS.resize_axis_coeffs(d, s)):
-            np.testing.assert_array_equal(row, want)
-        assert 0 <= int(t[:2].min()) and int(t[:2].max()) < s
-        assert 0 <= int(t[2].min()) and int(t[2].max()) <= 2048
-    (y0, y1, wy), (x0, x1, wx) = ty.numpy(), tx.numpy()
-    i = np.arange(h * w)
-    y, x = i // w, i % w
+    for d, s in ((h, sh), (w, sw)):
+        t = TI.resize_table(d, s)
+        assert t.dtype == np.uint32 and t.shape == (d,)
+        i0, i1, w1 = _unpack(t)
+        for got, want in zip((i0, i1, w1), TS.resize_axis_coeffs(d, s)):
+            np.testing.assert_array_equal(got, want)
+        assert 0 <= i0.min() and i1.max() < s and set(i1 - i0) <= {0, 1}
+        assert 0 <= w1.min() and w1.max() <= 2048
+    out = _walk_the_plan(img, dst_hw)
+    np.testing.assert_array_equal(out, TI.resize_u8(_t(img), dst_hw).numpy())
+
+
+def _unpack(table: np.ndarray):
+    """(i0, i1, w1) int32 of a packed `resize_table`, as K10 unpacks it."""
+    t = np.asarray(table, np.uint32)
+    i0 = t & ((1 << TI.RESIZE_INDEX_BITS) - 1)
+    return (i0.astype(np.int32),
+            (i0 + ((t >> TI.RESIZE_INDEX_BITS) & 1)).astype(np.int32),
+            (t >> (TI.RESIZE_INDEX_BITS + 1)).astype(np.int32))
+
+
+def _walk_the_plan(img: np.ndarray, dst_hw, band: int = 512) -> np.ndarray:
+    """K10 as its blocks compute it, in numpy int32.  A destination row
+    whose first byte lies m bytes past a word boundary (y * w % 4 = m for
+    an aligned output) has its words start at column -m, so its column c
+    belongs to tile (c + m) // RESIZE_TILE_W: every tap of every pixel must
+    lie in that tile's staged columns and in its tile row's staged rows.
+    The pixels take their table entries unpacked from `resize_table`.
+    Bands of `band` destination rows keep the arrays small."""
+    (h, w), (sh, sw) = dst_hw, img.shape
+    th, tw = TI.RESIZE_TILE_H, TI.RESIZE_TILE_W
+    plan = TI.resize_plan(dst_hw, img.shape)
+    y0t, y1t, wyt = _unpack(TI.resize_table(h, sh))
+    x0t, x1t, wxt = _unpack(TI.resize_table(w, sw))
+    # the tiles that stage are exactly those whose rows fit the budget at
+    # the widest a row's chunks can lie (an offset of 15 bytes)
+    assert plan.staged.shape == (-(-h // th), -(-(w + 3) // tw))
+    widest = 16 * -(-(plan.span + 15) // 16)
+    assert (plan.stride == widest).all()
+    np.testing.assert_array_equal(
+        plan.staged, plan.rows * widest <= TI.RESIZE_STAGE_BYTES)
+    # rows: each destination row's taps in its tile row's staged rows
+    ty = np.arange(h) // th
+    first, rows = plan.y0[ty, 0], plan.rows[ty, 0]
+    assert ((first <= y0t) & (y1t < first + rows)).all()
+    # columns: for each misalignment, each column's taps in its tile's
+    c = np.arange(w)
+    for m in range(4):
+        tx = (c + m) // tw
+        lo, hi = plan.c_lo[0, tx], plan.c_hi[0, tx]
+        x0, span = plan.x0[0, tx], plan.span[0, tx]
+        assert ((lo <= c) & (c < hi)).all()
+        assert ((x0 <= x0t) & (x1t < x0 + span)).all()
     src = img.astype(np.int32)
     one = np.int32(2048)
-    top = src[y0[y], x0[x]] * (one - wx[x]) + src[y0[y], x1[x]] * wx[x]
-    bot = src[y1[y], x0[x]] * (one - wx[x]) + src[y1[y], x1[x]] * wx[x]
-    acc = top * (one - wy[y]) + bot * wy[y]
-    assert acc.dtype == np.int32 and acc.min() >= 0
-    out = ((acc + np.int32(1 << 21)) >> 22).astype(np.uint8).reshape(h, w)
-    np.testing.assert_array_equal(out, TI.resize_u8(_t(img), dst_hw).numpy())
+    out = np.empty((h, w), np.uint8)
+    wx = wxt[None, :]
+    for b in range(0, h, band):
+        y = slice(b, min(b + band, h))
+        r0, r1, wy = src[y0t[y]], src[y1t[y]], wyt[y][:, None]
+        top = r0[:, x0t] * (one - wx) + r0[:, x1t] * wx
+        bot = r1[:, x0t] * (one - wx) + r1[:, x1t] * wx
+        acc = top * (one - wy) + bot * wy
+        assert acc.dtype == np.int32 and acc.min() >= 0
+        out[y] = (acc + np.int32(1 << 21)) >> 22
+    return out
+
+
+def _pyramid_steps(hw, scale):
+    return list(zip(TS.pyramid_shapes(*hw, scale, 8)[:-1],
+                    TS.pyramid_shapes(*hw, scale, 8)[1:]))
+
+
+# FHD, 4K and 8K pyramids at the scale factors 1.2 and 2.0; an upscale, a
+# 16x20 and an 8x8 level of the 4K pyramid's smallest; and downscales by 3
+# and 4, where tiles read the image directly
+PLAN_CASES = {f"{name}-{scale}": _pyramid_steps(hw, scale)
+              for name, hw in (("fhd", (1080, 1920)), ("4k", (2160, 3840)),
+                               ("8k", (4320, 7680)))
+              for scale in (1.2, 2.0)}
+PLAN_CASES["odd"] = [((603, 1072), (1042, 1852)), ((603, 1072), (16, 20)),
+                     ((603, 1072), (8, 8)), ((2160, 3840), (720, 1280)),
+                     ((2160, 3840), (540, 960)), ((2159, 3837), (1799, 3198))]
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_a_walk_of_the_resize_plan_matches_resize_u8(case):
+    """`resize_plan` holds every tap of every destination pixel inside its
+    tile's staged rows and columns, the tiles that read the image directly
+    are exactly those over the budget, and K10's walk of the plan equals
+    `resize_u8` (each pyramid level from the one before, as
+    `build_pyramid` makes it)."""
+    steps = PLAN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    src = rng.integers(0, 256, steps[0][0], dtype=np.uint8)
+    for src_hw, dst_hw in steps:
+        if src.shape != src_hw:
+            src = rng.integers(0, 256, src_hw, dtype=np.uint8)
+        want = TI.resize_u8(_t(src), dst_hw).numpy()
+        np.testing.assert_array_equal(_walk_the_plan(src, dst_hw), want)
+        staged = TI.resize_plan(dst_hw, src_hw).staged
+        if case != "odd":       # a pyramid step always stages
+            assert staged.all(), (src_hw, dst_hw)
+        src = want
+    if case == "odd":           # both branches, and a tile of each in one
+        plans = [TI.resize_plan(d, s).staged for s, d in steps]
+        assert plans[0].all() and not plans[2].any()
+        assert plans[3].any() and not plans[3].all()
+
+
+def test_resize_table_refuses_a_side_beyond_its_index_bits():
+    TI.resize_table(8, 1 << TI.RESIZE_INDEX_BITS)
+    with pytest.raises(ValueError, match="source pixels"):
+        TI.resize_table(8, (1 << TI.RESIZE_INDEX_BITS) + 1)
 
 
 def test_pyramid_goes_through_resize_u8_fast(monkeypatch):
