@@ -78,6 +78,20 @@ launch count set to 0 just before and read just after:
     bit-identical to the plain path), `HashSIFT(fused=True).compute` on
     40000 host keypoints, and a 4-frame `detect_and_compute_batch` whose
     frame i equals the single call on frame i.
+  - the mesh forms (`parallel/sharding.py`) on a 1-rank NCCL group in this
+    process: `detect(mesh=)` with and without the ROI, `detect_and_compute(
+    mesh=)` for BAD-256, HashSIFT-256 and the fused route (the band route:
+    K10, K8, K9, K2, then K3, K4 + K5 or K11 on each band's window; no K1
+    or K7 launch), a 4-frame `detect_and_compute_batch(mesh=)`,
+    `compute_sharded` of 40000 keypoints of 31-300 px and
+    `knn2_match_sharded` at 40000 x 40000 (two K6 calls), each equal to its
+    single-device call bit for bit, with the CUDA kernels of one call
+    listed from a trace and each call's time beside its single-device
+    twin's.  Then, spawned on this card, 2 gloo ranks at 1080x1920, whose
+    bands take their halo rows from each other: four `detect_and_compute`
+    calls (BAD-256, HashSIFT-256, fused, BAD-256 with the ROI) and a masked
+    `detect`, each rank's result equal to the single-device call on the
+    card, with each rank's launches and time per call.
 Every `detect` / `detect_and_compute` call builds its pyramid through K10:
 7 launches per call, checked in every path above.
 At the samples' own size (720x1280, 3000 features) configurations (a)-(d)
@@ -277,25 +291,52 @@ def patched(module_attrs):
             setattr(m, n, v)
 
 
-def kernel_names(fn, want: tuple = ()) -> dict:
-    """{kernel name: (launches, device ms)} of the CUDA kernels one call of
-    fn makes (torch.profiler).  A lost record can only take a launch away,
-    so a trace in which a name holding some string of `want` has no launch
-    is taken again, twice at most."""
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
+def traced_launches(listed: dict, names) -> dict:
+    """{name: launches of the traced kernels whose name holds it}."""
+    return {n: sum(c for k, (c, _) in listed.items() if n in k)
+            for n in names}
+
+
+def profiled(fn, reps: int = 1, cpu: bool = True):
+    """The torch.profiler record of `reps` calls of fn, after a warm-up step
+    of the profiler over one call: traces begun cold have lost the records
+    of their first kernels on the card (K6's first call of two in the mesh
+    listing, in most tries; one of K9's ten launches in `launch_ms`)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+        for calls in (1, reps):
             torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
+def kernel_names(fn, want: dict | None = None) -> dict:
+    """{kernel name: (launches, device ms)} of the CUDA kernels one call of
+    fn makes (`profiled`).  want: {string: launches expected of the kernels
+    whose name holds it}.  A lost record can only take a launch away, so a
+    trace that shows fewer launches than expected of some string is taken
+    again, four times at most; the caller checks the counts."""
+    want = want or {}
+    for _ in range(5):
         out = {}
-        for e in prof.key_averages():
+        for e in profiled(fn).key_averages():
             t = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
             if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
-                out[e.key] = (e.count, t / 1e3)
-        if all(any(w in k for k in out) for w in want):
+                # one name may head several groups (the grouping key holds
+                # more than the name): add them up
+                c, ms = out.get(e.key, (0, 0.0))
+                out[e.key] = (c + e.count, ms + t / 1e3)
+        got = traced_launches(out, want)
+        if all(got[w] >= c for w, c in want.items()):
             break
         print(f"trace lost launches of {want}, taken again", file=sys.stderr)
     return out
@@ -304,17 +345,12 @@ def kernel_names(fn, want: tuple = ()) -> dict:
 def launch_ms(fn, name: str, reps: int = 10) -> list[float]:
     """Device ms of each launch of the kernels whose name holds `name` that
     one call of fn makes, in launch order, averaged over `reps` calls after
-    2 (torch.profiler): a kernel's own time, without its wrapper.  A trace
+    2 (`profiled`): a kernel's own time, without its wrapper.  A trace
     that lost a launch's record is taken again, twice at most."""
     for _ in range(2):
         fn()
     for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(fn, reps, cpu=False)
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA
                          and name in e.name),
@@ -432,7 +468,7 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         live = n - empty_patches(args[0])
         return 1152 * n + HS_PLAN_BYTES, HS_PATCH_OPS * live, 0.0, 0.0
     if name == "resize_u8_kernel":
-        src, (h, w) = args
+        src, (h, w) = args[:2]
         return src.numel() + h * w + 4 * (h + w), 11.0 * h * w, 0.0, 0.0
     if name == "hs_desc_windows":
         from efficient_features_tpu_torch.ops import window_kernels as WK
@@ -516,6 +552,44 @@ def noisy_copies(rng, d2: np.ndarray, n: int, p: float) -> np.ndarray:
     src = d2[rng.integers(0, len(d2), n)]
     flips = np.packbits(rng.random((n, d2.shape[1] * 8)) < p, axis=1)
     return src ^ flips
+
+
+# The kernel wrappers whose launches a mesh call of phase (b) reports.
+MESH_WRAPPERS = (("ops.image", "resize_u8_kernel"),
+                 ("ops.detect_kernels", "fast_harris"),
+                 ("ops.detect_kernels", "radius_nms"),
+                 ("ops.detect_kernels", "fast_harris_nms_cells"),
+                 ("ops.detect_kernels", "fast_harris_nms"),
+                 ("ops.window_kernels", "ic_angles_windows"),
+                 ("ops.window_kernels", "bad_descriptors_windows"),
+                 ("ops.window_kernels", "warp_patches_windows"),
+                 ("ops.window_kernels", "hs_hist_from_patches"),
+                 ("ops.window_kernels", "hs_desc_windows"))
+
+
+def mesh_rank_call(method: str, features: dict, image, reps: int = 3,
+                   **kwargs):
+    """One rank's part of a mesh call of phase (b), run by
+    `parallel.launch.spmd` in a rank process: (result, ms per call, the
+    launches of each kernel wrapper in one call).  One call first, then one
+    counted call, then `reps` timed calls (CUDA events; each waits for the
+    other rank's collectives)."""
+    import importlib
+    from efficient_features_tpu_torch.parallel import launch
+    mods = {m: importlib.import_module("efficient_features_tpu_torch." + m)
+            for m, _ in MESH_WRAPPERS}
+
+    def counts():
+        return {n: getattr(mods[m], n).launches for m, n in MESH_WRAPPERS}
+
+    launch.call_api(method, features, image, **kwargs)
+    before = counts()
+    out = launch.call_api(method, features, image, **kwargs)
+    torch.cuda.synchronize()
+    after = counts()
+    ms = time_ms(lambda: launch.call_api(method, features, image, **kwargs),
+                 iters=reps, warmup=0)
+    return out, ms, {n: after[n] - before[n] for n in after}
 
 
 def main() -> int:
@@ -1093,11 +1167,11 @@ def main() -> int:
     # -- K4: HashSIFT warp, byte for byte -----------------------------------
     def check_warp(label, image, kp, scale=1.0):
         got = WK.warp_patches_windows(image, *kp, scale)
-        # no 2x2 support fits a 1x1 image, whose plain version's gather
-        # would index out of range: every patch is 0
-        want = torch.zeros_like(got) if image.numel() == 1 else \
-            WK.warp_patches_windows_ref(image, *kp, scale)
+        want = WK.warp_patches_windows_ref(image, *kp, scale)
         torch.cuda.synchronize()
+        if image.numel() == 1 and bool(got.any()):
+            fail("K4: a 1x1 image, where no 2x2 support fits, gave a "
+                 "nonzero patch")
         if not torch.equal(got, want):
             bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
             fail(f"K4 {label}: {int((got != want).sum())} bytes differ from "
@@ -1395,10 +1469,9 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             fail(f"K6 {8 * nbytes} bits: two runs differ")
         k6_names = ("knn2_prep_kernel", "knn2_mma_kernel", "knn2_merge_kernel")
-        k6_kernels = kernel_names(lambda: TM.knn2_topk2(q, v1, t, v2),
-                                  want=k6_names)
-        k6_launches = {n: sum(c for k, (c, _) in k6_kernels.items()
-                              if n in k) for n in k6_names}
+        k6_launches = traced_launches(
+            kernel_names(lambda: TM.knn2_topk2(q, v1, t, v2),
+                         want=dict.fromkeys(k6_names, 1)), k6_names)
         if any(c != 1 for c in k6_launches.values()):
             fail(f"K6: kernel launches of one wrapper call {k6_launches}, "
                  "expected one of each")
@@ -1469,7 +1542,7 @@ def main() -> int:
             with no_integral():
                 k3_kernels = kernel_names(lambda: [
                     WK.bad_descriptors_windows(*a, **k) for a, k in k3_calls],
-                    want=("bad_kernel",))
+                    want={"bad_kernel": 1})
             scans = [k for k in k3_kernels
                      if "scan" in k.lower() or "cumsum" in k.lower()]
             if scans or not any("bad_kernel" in k for k in k3_kernels):
@@ -1779,6 +1852,220 @@ def main() -> int:
           f"single call on one of them; host syncs per batch call "
           f"{batch_syncs} [{hw}]")
     del batch, bslots, bdesc
+
+    stamp("main path 7: the mesh forms on a 1-rank NCCL group")
+    # -- main path 7: parallel/sharding.py over torch.distributed ----------
+    # (a) one NCCL rank in this process, the headline configuration: the
+    # band route (K10 per band, K8, the border and ROI rows, K9, K2, then
+    # K3 / K4 + K5 / K11 on each band's window), the dp batch, the keypoint
+    # axis and the sharded matcher, each equal to its single-device call
+    import tempfile
+    import torch.distributed as dist
+    from efficient_features_tpu_torch.parallel import launch as LA
+    from efficient_features_tpu_torch.parallel import sharding as SH
+    band_kernels = pyramid_kernels + ["fast_harris", "radius_nms",
+                                      "ic_angles_windows"]
+    cell_kernels = ["fast_harris_nms_cells", "fast_harris_nms"]
+    band_names = ("resize_kernel", "fast_harris_kernel", "radius_nms_scan",
+                  "ic_kernel")
+    mesh_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{mesh_dir.name}/s",
+                            world_size=1, rank=0)
+
+    def mesh_time(what, mesh_fn, single_fn, iters=5):
+        ms_mesh = time_ms(mesh_fn, iters=iters, warmup=1)
+        ms_single = time_ms(single_fn, iters=iters, warmup=1)
+        print(f"time mesh {what}: {ms_mesh:.3f} ms/call on a 1-rank NCCL "
+              f"mesh, {ms_single:.3f} ms/call without a mesh [{hw}]")
+
+    def same_result(label, got, want):
+        """Slot dicts (or tensors) equal bit for bit."""
+        if isinstance(got, dict):
+            differ = [k for k in want if not torch.equal(got[k], want[k])]
+        else:
+            differ = [] if torch.equal(got, want) else ["rows"]
+        if differ:
+            fail(f"{label}: {differ} differ from the single-device call")
+
+    try:
+        mesh = SH.make_mesh()
+        ef_bad = EfficientFeatures(nfeatures=NFEATURES,
+                                   descriptor_type="bad_256", device="cuda")
+        listing = {}
+        for label, masked in (("detect", False), ("detect mask=roi", True)):
+            m = roi if masked else None
+            kps_m, counts = drive(
+                f"mesh {label}",
+                lambda: ef_bad.detect_async(scene, mask=m, mesh=mesh),
+                band_kernels, forbid=cell_kernels)
+            same_result(f"mesh {label}", kps_m._slots,
+                        ef_bad.detect_async(scene, mask=m)._slots)
+            print(f"mesh {label} {H}x{W}, {NFEATURES} features, radius 15: "
+                  f"{kps_m.count} keypoints, slots bit-identical to the "
+                  f"single-device call; launches {counts}")
+            mesh_time(label,
+                      lambda: ef_bad.detect_async(scene, mask=m, mesh=mesh),
+                      lambda: ef_bad.detect_async(scene, mask=m))
+        for dtype, fused in (("bad_256", False), ("hash_sift_256", False),
+                             ("hash_sift_256", True)):
+            feat = EfficientFeatures(nfeatures=NFEATURES,
+                                     descriptor_type=dtype, device="cuda",
+                                     hs_fused=fused)
+            kind = dtype.rsplit("_", 1)[0]
+            expect = band_kernels + (["hs_desc_windows"] if fused
+                                     else desc_kernels[kind])
+            forbid = cell_kernels + (two_stage if fused else
+                                     ["hs_desc_windows"])
+            label = f"detect_and_compute {dtype}{' fused' if fused else ''}"
+            (kps_m, desc_m), counts = drive(
+                f"mesh {label}",
+                lambda: feat.detect_and_compute_async(scene, mesh=mesh),
+                expect, forbid=forbid)
+            kps_s, desc_s = feat.detect_and_compute_async(scene)
+            same_result(f"mesh {label}", kps_m._slots, kps_s._slots)
+            same_result(f"mesh {label} descriptors", desc_m, desc_s)
+            names_k = band_names + {"bad": ("bad_kernel",),
+                                    "hash_sift": ("warp_kernel",
+                                                  "hs_hist_kernel")}[kind] \
+                if not fused else band_names + ("hs_desc_kernel",)
+            listing[label] = traced_launches(kernel_names(
+                lambda: feat.detect_and_compute_async(scene, mesh=mesh),
+                want=dict.fromkeys(names_k, 1)), names_k)
+            if not all(listing[label].values()):
+                fail(f"mesh {label}: kernels missing from the trace "
+                     f"{listing[label]}")
+            print(f"mesh {label}: {kps_m.count} keypoints, slots and "
+                  f"descriptor bytes identical to the single-device call; "
+                  f"launches {counts}; CUDA kernels traced (launches) "
+                  f"{listing[label]}")
+            mesh_time(label,
+                      lambda: feat.detect_and_compute_async(scene, mesh=mesh),
+                      lambda: feat.detect_and_compute_async(scene))
+        ef_hs = EfficientFeatures(nfeatures=NFEATURES,
+                                  descriptor_type="hash_sift_256",
+                                  device="cuda")
+        batch = torch.stack([img] + frames_dev)
+        (bs_m, bd_m), counts = drive(
+            "mesh detect_and_compute_batch",
+            lambda: ef_hs.detect_and_compute_batch(batch, mesh=mesh),
+            detect_kernels + two_stage, detect_calls=batch.shape[0])
+        bs_s, bd_s = ef_hs.detect_and_compute_batch(batch)
+        same_result("mesh batch", bs_m, bs_s)
+        same_result("mesh batch descriptors", bd_m, bd_s)
+        print(f"mesh detect_and_compute_batch of {batch.shape[0]} frames "
+              f"(make_mesh()): equal to the batch without a mesh; launches "
+              f"{counts}")
+        mesh_time(f"detect_and_compute_batch of {batch.shape[0]} frames",
+                  lambda: ef_hs.detect_and_compute_batch(batch, mesh=mesh),
+                  lambda: ef_hs.detect_and_compute_batch(batch), iters=3)
+        del batch, bs_m, bd_m, bs_s, bd_s
+        all_valid = torch.ones(N_KP, dtype=torch.bool, device=dev)
+        for kind in ("bad", "hash_sift"):
+            rows_m, counts = drive(
+                f"mesh compute_sharded {kind}",
+                lambda: SH.compute_sharded(img, hk_dev, all_valid, mesh,
+                                           kind=kind),
+                desc_kernels[kind])
+            rows_s = P.compute(img, hk_dev, all_valid, 256, kind, 1.0)
+            same_result(f"mesh compute_sharded {kind}", rows_m, rows_s)
+            print(f"mesh compute_sharded {kind}-256, {N_KP} keypoints of "
+                  f"31-300 px: bytes identical to pipeline.compute; "
+                  f"launches {counts}")
+            mesh_time(f"compute_sharded {kind}-256",
+                      lambda: SH.compute_sharded(img, hk_dev, all_valid, mesh,
+                                                 kind=kind),
+                      lambda: P.compute(img, hk_dev, all_valid, 256, kind,
+                                        1.0))
+        d1, v1, d2, v2 = (t.to(dev) for t in knn2_inputs(32, N_KP, N_KP))
+        got, counts = drive(
+            "mesh knn2_match_sharded",
+            lambda: SH.knn2_match_sharded(d1, v1, d2, v2, mesh),
+            ["knn2_topk2"])
+        if counts["knn2_topk2"] != 2:
+            fail(f"mesh knn2_match_sharded: {counts}, expected 2 K6 calls")
+        want = TM.knn2_ratio_match_masked(d1, v1, d2, v2)
+        for a, b in zip(got, want):
+            same_result("mesh knn2_match_sharded", a, b)
+        # both directions: each of K6's three kernels twice
+        k6_listed = traced_launches(kernel_names(
+            lambda: SH.knn2_match_sharded(d1, v1, d2, v2, mesh),
+            want=dict.fromkeys(k6_names, 2)), k6_names)
+        if any(c != 2 for c in k6_listed.values()):
+            fail(f"mesh knn2_match_sharded: kernel launches of one call "
+                 f"{k6_listed}, expected two of each")
+        print(f"mesh knn2_match_sharded {N_KP} x {N_KP}, 256 bits, masked: "
+              f"(j, best, ok) identical to knn2_ratio_match_masked, "
+              f"{int(got[2].sum())} matches; launches {counts}; CUDA "
+              f"kernels traced (launches) {k6_listed}")
+        mesh_time(f"knn2_match_sharded {N_KP} x {N_KP}",
+                  lambda: SH.knn2_match_sharded(d1, v1, d2, v2, mesh),
+                  lambda: TM.knn2_ratio_match_masked(d1, v1, d2, v2))
+    finally:
+        dist.destroy_process_group()
+        mesh_dir.cleanup()
+
+    stamp("the mesh forms on 2 gloo ranks on the card, 1080x1920")
+    # (b) two rank processes on this card, gloo through the host: each rank
+    # owns half the rows of every level, so the halos cross ranks
+    hw_b = (1080, 1920)
+    scene_b = SC.tiled_scene(*hw_b, seed=1080, distinct=False)
+    roi_b = SC.roi_mask(*hw_b)
+    mesh_b = LA.MeshSpec((2,))
+    cases_b = [(f"detect_and_compute {dt}{' fused' if fused else ''}"
+                f"{' mask=roi' if masked else ''}", "detect_and_compute_async",
+                dict(nfeatures=10000, descriptor_type=dt, hs_fused=fused),
+                masked)
+               for dt, fused, masked in (("bad_256", False, False),
+                                         ("hash_sift_256", False, False),
+                                         ("hash_sift_256", True, False),
+                                         ("bad_256", False, True))]
+    cases_b.append(("detect mask=roi", "detect_async",
+                    dict(nfeatures=10000, descriptor_type="bad_256"), True))
+    calls_b = [("chip_smoke:mesh_rank_call",
+                (method, dict(feat, device="cuda"), scene_b),
+                dict(mesh=mesh_b, **({"mask": roi_b} if masked else {})))
+               for _, method, feat, masked in cases_b]
+    t_b = time.perf_counter()
+    ranks_b = LA.spmd(2, calls_b, backend="gloo", device="cuda",
+                      timeout_s=300)
+    print(f"2 gloo ranks on {torch.cuda.get_device_name(0)}: spawned, "
+          f"joined and ran {len(calls_b)} calls in "
+          f"{time.perf_counter() - t_b:.1f} s")
+    for j, (label, method, feat, masked) in enumerate(cases_b):
+        single = getattr(EfficientFeatures(device="cuda", **feat), method)(
+            scene_b, roi_b if masked else None)
+        if method == "detect_async":
+            want = ({k: v.cpu().numpy() for k, v in single._slots.items()},)
+        else:
+            want = ({k: v.cpu().numpy() for k, v in single[0]._slots.items()},
+                    single[1].cpu().numpy())
+        ms_single = time_ms(lambda: getattr(
+            EfficientFeatures(device="cuda", **feat), method)(
+                scene_b, roi_b if masked else None), iters=3, warmup=1)
+        for r, res in enumerate(ranks_b):
+            out = res[j]
+            if out[0] == "error":
+                fail(f"2-rank mesh {label}, rank {r}: {out[1]}: {out[2]}")
+            got, ms, launches = out
+            parts = (got,) if method == "detect_async" else got
+            for g, w in zip(parts, want):
+                if isinstance(w, dict):
+                    differ = [k for k in w if not np.array_equal(g[k], w[k])]
+                else:
+                    differ = [] if np.array_equal(g, w) else ["descriptors"]
+                if differ:
+                    fail(f"2-rank mesh {label}, rank {r}: {differ} differ "
+                         "from the single-device call on the card")
+            used = {k: v for k, v in launches.items() if v}
+            missing = [k for k in ("resize_u8_kernel", "fast_harris",
+                                   "radius_nms", "ic_angles_windows")
+                       if not used.get(k)]
+            if missing or any(used.get(k) for k in cell_kernels):
+                fail(f"2-rank mesh {label}, rank {r}: launches {used}")
+            print(f"2-rank mesh {label} {hw_b[0]}x{hw_b[1]}, rank {r}: "
+                  f"bit-identical to the single-device call on the card; "
+                  f"launches per call {used}; {ms:.3f} ms/call against "
+                  f"{ms_single:.3f} ms/call without a mesh [{hw}]")
 
     stamp("720p against the CPU port")
     # -- the sequence path on the card vs the port on the CPU, 720x1280 ------

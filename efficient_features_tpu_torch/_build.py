@@ -40,17 +40,17 @@ _SIGNATURES = {
     "eff_radius_nms": [_P, _I, _I, _I, _P, _P, _P],
     "eff_ic_moments": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "eff_ic_angles_from_moments": [_P, _I, _P, _P],
-    "eff_bad_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _I,
-                            ctypes.c_float, _P, _P, _I, _P, _P, _P, _P],
-    "eff_warp_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float,
-                         _P, _P],
+    "eff_bad_descriptors": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _I, ctypes.c_float, _P, _P, _I, _P, _P, _P, _P],
+    "eff_warp_patches": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                         ctypes.c_float, _P, _P],
     "eff_keypoint_trig": [_P, _P, _I, ctypes.c_float, _P, _P, _P, _P],
     "eff_hs_hist": [_P, _I, _P, _P, ctypes.c_float, _P, _P],
     "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P],
     "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
-    "eff_hs_desc": [_P, _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float, _P,
-                    _P, ctypes.c_float, _P, _P],
+    "eff_hs_desc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                    ctypes.c_float, _P, _P, ctypes.c_float, _P, _P],
     "eff_hs_hist_blocks_per_sm": [_P],
     "eff_hs_desc_blocks_per_sm": [_P],
 }

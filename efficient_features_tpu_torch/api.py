@@ -13,6 +13,12 @@ enqueue on the current CUDA stream and return device tensors;
 On the cells route (nonmax_radius >= 10) the tie-fallback decision reads
 one flag per pyramid level, so an `_async` call still syncs the host once
 per level there.
+
+`mesh=` (a `parallel.sharding.Mesh` over `torch.distributed` ranks, made by
+`make_mesh` or `make_mesh_2d`): every rank of the mesh makes the same call
+on the same input, computes its share on the detector's device, and gets
+back what the call without a mesh returns.  The collectives take the
+group's transport: NCCL for CUDA tensors, gloo through the host.
 """
 from __future__ import annotations
 
@@ -22,11 +28,6 @@ import numpy as np
 import torch
 
 from . import pipeline as P
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, {item!r})")
 
 
 class KeyPoints:
@@ -312,10 +313,8 @@ class EfficientFeatures:
     def device(self) -> torch.device:
         return self._device
 
-    def _inputs(self, image, mask, mesh):
+    def _inputs(self, image, mask):
         """(image, mask or None) as tensors on the detector's device."""
-        if mesh is not None:
-            raise _not_ported("mesh=", "parallel/sharding.py")
         img = _as_u8_image(image, self._device)
         P.validate_image_shape(self._cfg, *img.shape)
         if mask is not None:
@@ -328,8 +327,19 @@ class EfficientFeatures:
         return self.detect_async(image, mask, mesh).block()
 
     def detect_async(self, image, mask=None, mesh=None) -> KeyPoints:
-        img, mask = self._inputs(image, mask, mesh)
-        return self._keypoints(P.detect(img, self._cfg, mask), img.shape)
+        """Keypoints of one image.  mesh: split the image, and its whole
+        pyramid, into row bands over the mesh's ranks
+        (`parallel/sharding.detect_pyramid_rows_sharded`); the slots equal
+        the call without a mesh.  An image too small for the bands' halos
+        raises ValueError."""
+        img, mask = self._inputs(image, mask)
+        if mesh is not None:
+            from .parallel import sharding as SH
+            slots = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
+                                                   mask=mask)
+        else:
+            slots = P.detect(img, self._cfg, mask)
+        return self._keypoints(slots, img.shape)
 
     def _keypoints(self, slots: dict, hw) -> KeyPoints:
         """Detector output with its static size bound and slot layout."""
@@ -362,9 +372,15 @@ class EfficientFeatures:
 
     def detect_and_compute_async(self, image, mask=None, mesh=None):
         """(KeyPoints, slot-aligned (capacity, bytes) uint8 device tensor);
-        invalid slots have zero rows."""
-        img, mask = self._inputs(image, mask, mesh)
-        slots, descs = P.detect_and_compute(img, self._cfg, mask)
+        invalid slots have zero rows.  mesh: as for `detect_async`, each
+        band describing the keypoints in its rows."""
+        img, mask = self._inputs(image, mask)
+        if mesh is not None:
+            from .parallel import sharding as SH
+            slots, descs = SH.detect_pyramid_rows_sharded(
+                img, self._cfg, mesh, with_descriptors=True, mask=mask)
+        else:
+            slots, descs = P.detect_and_compute(img, self._cfg, mask)
         return self._keypoints(slots, img.shape), descs
 
     def convert(self, keypoints: KeyPoints):
@@ -375,23 +391,31 @@ class EfficientFeatures:
         """Batched detect+compute on the detector's device.  images:
         (B, H, W) uint8, an array or a tensor.  Returns (slot dict with a
         leading batch axis, (B, capacity, bytes) uint8 descriptors) on the
-        device; the frames run one after the other
-        (parallel/sharding.detect_and_compute_batch), so frame i equals a
-        single call on images[i].
+        device; frame i equals a single call on images[i].
+
+        mesh=None runs the frames one after the other on the detector's one
+        device (parallel/sharding.detect_and_compute_batch); the JAX
+        package's default is instead a mesh of every device it finds.  A
+        1-axis mesh deals the frames over its ranks (B divisible by its
+        size); a 2-axis (dp, sp) mesh (`make_mesh_2d`) deals them over dp
+        and splits each frame's pyramid into row bands over sp
+        (`detect_and_compute_batch_2d`).  Every rank gets the whole batch.
 
         as_host=True instead fetches everything and returns a list of
         (KeyPoints, descriptors) per image, descriptor rows compacted to the
         valid keypoints, as `detect_and_compute` gives them."""
         from .parallel import sharding as SH
-        if mesh is not None:
-            raise _not_ported("mesh=", "parallel/sharding.py")
         imgs = images if isinstance(images, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(images))
         if imgs.dim() != 3 or imgs.dtype != torch.uint8:
             raise ValueError("images must be (B, H, W) uint8")
         P.validate_image_shape(self._cfg, *imgs.shape[1:])
-        slots, desc = SH.detect_and_compute_batch(
-            imgs.to(self._device).contiguous(), self._cfg)
+        imgs = imgs.to(self._device).contiguous()
+        if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
+            slots, desc = SH.detect_and_compute_batch_2d(imgs, self._cfg,
+                                                         mesh)
+        else:
+            slots, desc = SH.detect_and_compute_batch(imgs, self._cfg, mesh)
         if not as_host:
             return slots, desc
         host = {k: v.cpu() for k, v in slots.items()}

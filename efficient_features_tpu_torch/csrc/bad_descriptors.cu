@@ -44,6 +44,16 @@
 //     return at once otherwise, as on every detect_and_compute call.
 //     Keypoints come in any order and any size, so the branch is taken per
 //     keypoint, in the kernel.
+//   - Bands.  The image may be a band of a larger frame (`hs::Frame`, as
+//     for K4; the sharded pipeline describes a band's keypoints in frame
+//     coordinates), as `ops/bad.bad_descriptors` takes it with `origin` and
+//     `frame_hw`: the box corners are rounded in frame coordinates, the
+//     border test and the border boxes' clamps use the frame, and only the
+//     box sums read the band, at the corners less the origin.  The window
+//     reaches, in frame rows, from min(fy - sup, frame_h - 1) to max(fy +
+//     sup + 2, 1), so that it also holds the edge row onto which a border
+//     box wholly outside the frame is clamped; with the whole image as the
+//     frame that is the window above.
 // Lane l forms byte l (and l + 32 at 512 bits), so a row is written with one
 // coalesced store per lane.  s, cos*s and sin*s come from the keypoint's
 // size and angle here, by the trig that K4 and K11 run
@@ -92,7 +102,7 @@ struct Window {
 };
 
 __device__ __forceinline__ Window window_plan(float x, float y, float s,
-                                              int img_h, int img_w) {
+                                              const hs::Frame& f) {
   const int sup = static_cast<int>(fminf(
                       ceilf(__fmul_rn(kSupport, fmaxf(s, 0.0f))),
                       kSupportCap)) + 3;
@@ -101,10 +111,10 @@ __device__ __forceinline__ Window window_plan(float x, float y, float s,
   const int fx = static_cast<int>(floorf(fminf(fmaxf(x, -kCoordCap),
                                                kCoordCap)));
   Window win;
-  win.y0 = clampi(fy - sup, 0, img_h - 1);
-  win.x0 = clampi(fx - sup, 0, img_w - 1);
-  win.h = clampi(fy + sup + 2, 1, img_h) - win.y0;
-  win.w = clampi(fx + sup + 2, 1, img_w) - win.x0;
+  win.y0 = clampi(min(fy - sup, f.fh - 1) - f.oy, 0, f.h - 1);
+  win.x0 = clampi(min(fx - sup, f.fw - 1) - f.ox, 0, f.w - 1);
+  win.h = clampi(max(fy + sup + 2, 1) - f.oy, 1, f.h) - win.y0;
+  win.w = clampi(max(fx + sup + 2, 1) - f.ox, 1, f.w) - win.x0;
   return win;
 }
 
@@ -152,7 +162,7 @@ struct IntegralBoxes {
 struct Keypoint {
   float c, sn, s, m02, m12;
   bool in_border;
-  int img_h, img_w;
+  hs::Frame frame;
 };
 
 struct Tables {
@@ -175,18 +185,21 @@ __device__ __forceinline__ bool bad_bit(const Boxes& ii, const Keypoint& kp,
       __fadd_rn(__fadd_rn(__fmul_rn(sn, u2), __fmul_rn(c, v2)), kp.m12));
   const int r = round_num(__fmul_rn(kp.s, __ldg(t.br + i)));
   const float th = __ldg(t.th + i);
+  // box corners in frame coordinates; the sums read the image at the
+  // corners less its origin
+  const int oy = kp.frame.oy, ox = kp.frame.ox;
   if (!kp.in_border) {
     // sums wrap modulo 2^32 like the integral-image form
     const uint32_t d =
-        static_cast<uint32_t>(ii.box(cy1 - r, cx1 - r, cy1 + r + 1,
-                                     cx1 + r + 1))
-        - static_cast<uint32_t>(ii.box(cy2 - r, cx2 - r, cy2 + r + 1,
-                                       cx2 + r + 1));
+        static_cast<uint32_t>(ii.box(cy1 - r - oy, cx1 - r - ox,
+                                     cy1 + r + 1 - oy, cx1 + r + 1 - ox))
+        - static_cast<uint32_t>(ii.box(cy2 - r - oy, cx2 - r - ox,
+                                       cy2 + r + 1 - oy, cx2 + r + 1 - ox));
     const int side = 1 + 2 * r;
     return __int2float_rn(static_cast<int32_t>(d))
            <= __fmul_rn(th, __int2float_rn(side * side));
   }
-  const int img_h = kp.img_h, img_w = kp.img_w;
+  const int img_h = kp.frame.fh, img_w = kp.frame.fw;
   const int ax1 = clampi(cx1 - r, 0, img_w - 1);
   const int ay1 = clampi(cy1 - r, 0, img_h - 1);
   const int ax2 = clampi(cx1 + r + 1, 1, img_w);
@@ -195,8 +208,8 @@ __device__ __forceinline__ bool bad_bit(const Boxes& ii, const Keypoint& kp,
   const int by1 = clampi(cy2 - r, 0, img_h - 1);
   const int bx2 = clampi(cx2 + r + 1, 1, img_w);
   const int by2 = clampi(cy2 + r + 1, 1, img_h);
-  const int32_t s1 = ii.box(ay1, ax1, ay2, ax2);
-  const int32_t s2 = ii.box(by1, bx1, by2, bx2);
+  const int32_t s1 = ii.box(ay1 - oy, ax1 - ox, ay2 - oy, ax2 - ox);
+  const int32_t s2 = ii.box(by1 - oy, bx1 - ox, by2 - oy, bx2 - ox);
   const int32_t a1 = (ay2 - ay1) * (ax2 - ax1);
   const int32_t a2 = (by2 - by1) * (bx2 - bx1);
   const float a1f = __int2float_rn(a1);
@@ -285,13 +298,13 @@ need_integral_kernel(const float* __restrict__ kx,
                      const float* __restrict__ ky,
                      const float* __restrict__ ksize,
                      const uint8_t* __restrict__ valid, int n, float scale,
-                     int img_h, int img_w, int* __restrict__ flag) {
+                     hs::Frame frame, int* __restrict__ flag) {
   const int k = blockIdx.x * kFlagThreads + threadIdx.x;
   const bool need =
       k < n && valid[k]
       && !window_fits(window_plan(kx[k], ky[k],
-                                  hs::keypoint_scale(ksize[k], scale), img_h,
-                                  img_w));
+                                  hs::keypoint_scale(ksize[k], scale),
+                                  frame));
   if (__syncthreads_or(need) && threadIdx.x == 0) atomicOr(flag, 1);
 }
 
@@ -366,7 +379,7 @@ integral_cols_kernel(int h, int w, const int* __restrict__ flag,
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-bad_kernel(const uint8_t* __restrict__ img, int img_h, int img_w,
+bad_kernel(const uint8_t* __restrict__ img, hs::Frame frame,
            const float* __restrict__ kx, const float* __restrict__ ky,
            const float* __restrict__ ksize, const float* __restrict__ kangle,
            const uint8_t* __restrict__ valid, int n, float scale,
@@ -395,27 +408,27 @@ bad_kernel(const uint8_t* __restrict__ img, int img_h, int img_w,
   kp.m12 = a.m12;
   // 28*s == 32 * (size/64) * MARGIN bit for bit (both round the same real)
   const float bw = __fmul_rn(28.0f, kp.s);
-  kp.in_border = x < bw || __fadd_rn(x, bw) >= static_cast<float>(img_w)
-                 || y < bw || __fadd_rn(y, bw) >= static_cast<float>(img_h);
-  kp.img_h = img_h;
-  kp.img_w = img_w;
+  kp.in_border = x < bw || __fadd_rn(x, bw) >= static_cast<float>(frame.fw)
+                 || y < bw || __fadd_rn(y, bw) >= static_cast<float>(frame.fh);
+  kp.frame = frame;
   const Tables t{boxes, boxes + nbits, boxes + 2 * nbits, boxes + 3 * nbits,
                  boxes + 4 * nbits, thresholds};
 
-  const Window win = window_plan(x, y, kp.s, img_h, img_w);
+  const Window win = window_plan(x, y, kp.s, frame);
   if (window_fits(win)) {
     int32_t* ii = smem + warp * kIntCap;
-    window_integral(img, img_w, win, lane, ii);
+    window_integral(img, frame.w, win, lane, ii);
     write_row(WindowBoxes{ii, win}, kp, t, nbytes, lane, row);
   } else {
-    write_row(IntegralBoxes{integral, img_h + 1, img_w + 1}, kp, t, nbytes,
-              lane, row);
+    write_row(IntegralBoxes{integral, frame.h + 1, frame.w + 1}, kp, t,
+              nbytes, lane, row);
   }
 }
 
 }  // namespace
 
 extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
+                                   int oy, int ox, int frame_h, int frame_w,
                                    const float* kx, const float* ky,
                                    const float* size, const float* angle,
                                    const uint8_t* valid, int n, float scale,
@@ -423,8 +436,10 @@ extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
                                    const float* thresholds, int nbits,
                                    int32_t* integral, int32_t* flag,
                                    uint8_t* out, void* stream) {
-  if (img_h < 1 || img_w < 1 || n < 1 || (nbits != 256 && nbits != 512))
+  if (img_h < 1 || img_w < 1 || n < 1 || (nbits != 256 && nbits != 512)
+      || frame_h < 1 || frame_w < 1)
     return cudaErrorInvalidValue;
+  const hs::Frame frame{oy, ox, frame_h, frame_w, img_h, img_w};
   cudaError_t err = cudaFuncSetAttribute(
       bad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -433,8 +448,8 @@ extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
   err = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (err != cudaSuccess) return err;
   need_integral_kernel<<<(n + kFlagThreads - 1) / kFlagThreads, kFlagThreads,
-                         0, st>>>(kx, ky, size, valid, n, scale, img_h,
-                                  img_w, flag);
+                         0, st>>>(kx, ky, size, valid, n, scale, frame,
+                                  flag);
   integral_rows_kernel<<<(img_h + kScanWarps - 1) / kScanWarps,
                          kScanWarps * 32, 0, st>>>(img, img_h, img_w, flag,
                                                    integral);
@@ -444,7 +459,7 @@ extern "C" int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
   if (err != cudaSuccess) return err;
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   bad_kernel<<<blocks, kWarpsPerBlock * 32, kSmemBytes, st>>>(
-      img, img_h, img_w, kx, ky, size, angle, valid, n, scale, boxes,
-      thresholds, nbits, integral, out);
+      img, frame, kx, ky, size, angle, valid, n, scale, boxes, thresholds,
+      nbits, integral, out);
   return cudaGetLastError();
 }

@@ -54,26 +54,32 @@ int eff_ic_angles_from_moments(const int32_t* moments, int n, float* angles,
                                void* stream);
 
 // K3: BAD descriptors from the image itself; four kernels on `stream`.
-// img: (img_h, img_w) uint8.  kx, ky, size, angle: (n,) float32 keypoints
-// (angle in degrees, < 0 for none); valid: (n,) uint8; scale: the scale
-// factor (s = scale * size / 32, size >= 0).  boxes: (5,
-// nbits) float32 rows x1, x2, y1, y2, radius; thresholds: (nbits,); nbits
-// 256 or 512.  integral: (img_h+1)*(img_w+1) int32 scratch, built only when
+// img: (img_h, img_w) uint8, rows oy .. oy + img_h - 1 and columns ox ..
+// ox + img_w - 1 of a (frame_h, frame_w) frame (0, 0, img_h, img_w for the
+// whole image).  kx, ky, size, angle: (n,) float32 keypoints in frame
+// coordinates (angle in degrees, < 0 for none); valid: (n,) uint8; scale:
+// the scale factor (s = scale * size / 32, size >= 0).  boxes: (5, nbits)
+// float32 rows x1, x2, y1, y2, radius; thresholds: (nbits,); nbits 256 or
+// 512.  integral: (img_h+1)*(img_w+1) int32 scratch, built only when
 // a valid keypoint's window exceeds the shared-memory plan
 // (ops/bad.window_plan); flag: one int32 of scratch.  out: (n, nbits/8)
 // uint8, bits MSB-first.
-int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w,
-                        const float* kx, const float* ky, const float* size,
-                        const float* angle, const uint8_t* valid, int n,
-                        float scale, const float* boxes,
-                        const float* thresholds, int nbits, int32_t* integral,
-                        int32_t* flag, uint8_t* out, void* stream);
+int eff_bad_descriptors(const uint8_t* img, int img_h, int img_w, int oy,
+                        int ox, int frame_h, int frame_w, const float* kx,
+                        const float* ky, const float* size, const float* angle,
+                        const uint8_t* valid, int n, float scale,
+                        const float* boxes, const float* thresholds, int nbits,
+                        int32_t* integral, int32_t* flag, uint8_t* out,
+                        void* stream);
 
-// K4: HashSIFT patch warp, any keypoint size.  img: (h, w) uint8;
-// kx, ky, size, angle: (n,) float32 keypoints (angle in degrees, < 0 for
-// none); valid: (n,) uint8; scale: the scale factor.  out: (n, 1024) uint8
-// 32x32 patches, row-major, 16-byte aligned; invalid slots get zero rows.
-int eff_warp_patches(const uint8_t* img, int h, int w, const float* kx,
+// K4: HashSIFT patch warp, any keypoint size.  img: (h, w) uint8, rows oy
+// .. oy + h - 1 and columns ox .. ox + w - 1 of a (frame_h, frame_w) frame,
+// as for K3; kx, ky, size, angle: (n,) float32 keypoints in frame
+// coordinates (angle in degrees, < 0 for none); valid: (n,) uint8; scale:
+// the scale factor.  out: (n, 1024) uint8 32x32 patches, row-major, 16-byte
+// aligned; invalid slots get zero rows.
+int eff_warp_patches(const uint8_t* img, int h, int w, int oy, int ox,
+                     int frame_h, int frame_w, const float* kx,
                      const float* ky, const float* size, const float* angle,
                      const uint8_t* valid, int n, float scale, uint8_t* out,
                      void* stream);
@@ -148,7 +154,8 @@ int eff_resize_u8(const uint8_t* src, int sh, int sw, const uint32_t* ytab,
 // plan, wpack and ori_scale as K5.  out: (n, 128) uint8, orientation-major,
 // 8-byte aligned; invalid slots get zero rows.  Rows equal
 // eff_hs_hist(eff_warp_patches(.)) byte for byte.
-int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
+int eff_hs_desc(const uint8_t* img, int h, int w, int oy, int ox,
+                int frame_h, int frame_w, const float* kx,
                 const float* ky, const float* size, const float* angle,
                 const uint8_t* valid, int n, float scale, const int32_t* plan,
                 const float* wpack, float ori_scale, uint8_t* out,

@@ -72,33 +72,59 @@ __device__ __forceinline__ Affine keypoint_affine(float x, float y, float c,
 
 // -- the warp: one bilinear sample under the keypoint affine ----------------
 
-// Where a sample's 2x2 support (image rows vi, vi + 1, columns ui, ui + 1)
-// is read: here the image in device memory; K4 (warp_patches.cu) has a
-// fetch from the keypoint's window of the image staged in shared memory.
+// Where the image lies in the frame that the keypoints' coordinates refer
+// to: it holds the frame's rows oy .. oy + h - 1 and columns ox .. ox + w - 1
+// (a band of a larger image on the sharded path; origin (0, 0) and the
+// frame the image itself otherwise).  A sample is valid when its 2x2
+// support lies in the frame; its pixels are then read at image row
+// r0 = clamp(vi - oy, 0, h - 2), r1 = r0 + 1 and column c0 = clamp(ui - ox,
+// 0, w - 2), c1 = c0 + 1, the plain version's 2-D index
+// (ops/hash_sift.warp_patches), whose -1 on a 1-row or 1-column image is
+// row or column 0.
+struct Frame {
+  int oy, ox;   // the image's first row and column in the frame
+  int fh, fw;   // frame rows, columns
+  int h, w;     // image rows, columns
+};
+
+__device__ __forceinline__ Frame whole_image(int h, int w) {
+  return Frame{0, 0, h, w, h, w};
+}
+
+// Where a sample's 2x2 support (image rows r0, r1, columns c0, c1) is read:
+// here the image in device memory; K4 (warp_patches.cu) has a fetch from the
+// keypoint's window of the image staged in shared memory.  The four pixels
+// are read at offsets from pixel (r0, c0) (r1 - r0 and c1 - c0 are 0 or
+// 1), so that the whole image's fetch is its four loads at 0, 1, w, w + 1
+// (K11 took 5% more time with a pointer per row).
 struct GlobalFetch {
   const uint8_t* img;
   int w;
 
-  __device__ __forceinline__ void operator()(int vi, int ui, float& p00,
-                                             float& p01, float& p10,
-                                             float& p11) const {
-    const uint8_t* p = img + static_cast<size_t>(vi) * w + ui;
+  __device__ __forceinline__ void operator()(int r0, int r1, int c0, int c1,
+                                             float& p00, float& p01,
+                                             float& p10, float& p11) const {
+    const uint8_t* p = img + static_cast<size_t>(r0) * w + c0;
+    const int down = (r1 - r0) * w, right = c1 - c0;
     p00 = __ldg(p);
-    p01 = __ldg(p + 1);
-    p10 = __ldg(p + w);
-    p11 = __ldg(p + w + 1);
+    p01 = __ldg(p + right);
+    p10 = __ldg(p + down);
+    p11 = __ldg(p + down + right);
   }
 };
 
 // Patch pixels p0 .. p0 + 3 (p0 a multiple of 4, so one patch row) as one
 // little-endian 32-bit word.  A sample is valid when its 2x2 support lies in
-// the image; it is then the reference's full-f32 lerp of the four pixels,
+// the frame; it is then the reference's full-f32 lerp of the four pixels,
 // rounded as min(trunc(t + 0.5), 255); else 0.  Only the fetch of the four
-// pixels depends on where they are read from.
-template <typename Fetch>
-__device__ __forceinline__ uint32_t sample_word(const Fetch& fetch, int h,
-                                                int w, const Affine& a,
-                                                int p0) {
+// pixels depends on where they are read from.  kBand: the image is a band
+// of a larger frame.  Without it the frame is the image, a valid sample's
+// support lies in the image, and the reads need no clamp (the same pixels;
+// the clamps cost K4 a tenth of its time).
+template <bool kBand, typename Fetch>
+__device__ __forceinline__ uint32_t sample_word(const Fetch& fetch,
+                                                const Frame& f,
+                                                const Affine& a, int p0) {
   const float py = static_cast<float>(p0 / kPatch);
   uint32_t word = 0;
 #pragma unroll
@@ -111,12 +137,18 @@ __device__ __forceinline__ uint32_t sample_word(const Fetch& fetch, int h,
     const float uf = floorf(u), vf = floorf(v);
     // the range test on the float floors keeps a far-off sample from
     // overflowing the int conversion
-    if (uf >= 0.0f && uf < static_cast<float>(w - 1) && vf >= 0.0f
-        && vf < static_cast<float>(h - 1)) {
+    if (uf >= 0.0f && uf < static_cast<float>(f.fw - 1) && vf >= 0.0f
+        && vf < static_cast<float>(f.fh - 1)) {
       const int ui = static_cast<int>(uf), vi = static_cast<int>(vf);
       const float du = __fsub_rn(u, uf), dv = __fsub_rn(v, vf);
       float p00, p01, p10, p11;
-      fetch(vi, ui, p00, p01, p10, p11);
+      if (kBand) {
+        const int r0 = min(max(vi - f.oy, 0), f.h - 2);
+        const int c0 = min(max(ui - f.ox, 0), f.w - 2);
+        fetch(max(r0, 0), r0 + 1, max(c0, 0), c0 + 1, p00, p01, p10, p11);
+      } else {
+        fetch(vi, vi + 1, ui, ui + 1, p00, p01, p10, p11);
+      }
       const float h0 = __fsub_rn(1.0f, du);
       const float z_top = __fadd_rn(__fmul_rn(h0, p00), __fmul_rn(du, p01));
       const float z_bot = __fadd_rn(__fmul_rn(h0, p10), __fmul_rn(du, p11));
@@ -226,10 +258,11 @@ struct HistScratch {
 // The dynamic shared memory of the kernels that run `hist_block`.  Above
 // the 48 KB a launch gets by default, so each kernel raises its limit once
 // per device before its first launch, and asks for the largest shared
-// memory carveout, in which 3 blocks fit an SM.
-template <typename Kernel>
-__host__ cudaError_t allow_hist_scratch(Kernel kernel) {
-  static bool done[64] = {};
+// memory carveout, in which 3 blocks fit an SM.  `done` is the kernel's
+// own record of the devices it has raised (each kernel, and each
+// instantiation of a kernel template, keeps one).
+__host__ inline cudaError_t allow_hist_scratch(const void* kernel,
+                                               bool (&done)[64]) {
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess || (dev < 64 && done[dev])) return rc;

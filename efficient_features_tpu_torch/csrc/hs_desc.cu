@@ -36,7 +36,9 @@
 // of the block, so no thread leaves early and every barrier is reached by
 // all.  Each slot's affine is computed once, by the first threads of the
 // block, from its size and angle (`hs::keypoint_trig`, as K4), so the
-// wrapper runs no torch op.  Build with -fmad=false, as K4 and K5.
+// wrapper runs no torch op.  The image may be a band of a larger frame, as
+// for K4 (`hs::Frame`; a band's launch takes the instantiation whose reads
+// are clamped into the band).  Build with -fmad=false, as K4 and K5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,13 +47,15 @@
 
 namespace {
 
+template <bool kBand>
 __global__ void __launch_bounds__(hs::kHistThreads)
 hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
                const float* __restrict__ kx, const float* __restrict__ ky,
                const float* __restrict__ ksize,
                const float* __restrict__ kangle,
                const uint8_t* __restrict__ valid, int n, float scale,
-               const int* __restrict__ plan, const float* __restrict__ wpack,
+               hs::Frame frame, const int* __restrict__ plan,
+               const float* __restrict__ wpack,
                float ori_scale, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ hs::Affine s_affine[hs::kBlockPatches];
@@ -77,9 +81,9 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
     w0[j] = w1[j] = 0u;
     if (p < np && valid[k]) {
       const hs::GlobalFetch fetch{img, w};
-      w0[j] = hs::sample_word(fetch, h, w, s_affine[p], u * 4);
-      w1[j] = hs::sample_word(fetch, h, w, s_affine[p],
-                              (u + hs::kBinThreads) * 4);
+      w0[j] = hs::sample_word<kBand>(fetch, frame, s_affine[p], u * 4);
+      w1[j] = hs::sample_word<kBand>(fetch, frame, s_affine[p],
+                                     (u + hs::kBinThreads) * 4);
     }
   }
   bool nonzero = false;
@@ -97,27 +101,45 @@ hs_desc_kernel(const uint8_t* __restrict__ img, int h, int w,
                  out + static_cast<size_t>(base) * 128);
 }
 
+template <bool kBand>
+cudaError_t allow_scratch() {
+  static bool done[64] = {};
+  return hs::allow_hist_scratch(
+      reinterpret_cast<const void*>(hs_desc_kernel<kBand>), done);
+}
+
 }  // namespace
 
-extern "C" int eff_hs_desc(const uint8_t* img, int h, int w, const float* kx,
+extern "C" int eff_hs_desc(const uint8_t* img, int h, int w, int oy, int ox,
+                           int frame_h, int frame_w, const float* kx,
                            const float* ky, const float* size,
                            const float* angle, const uint8_t* valid, int n,
                            float scale, const int32_t* plan, const float* wpack,
                            float ori_scale, uint8_t* out, void* stream) {
-  if (h < 1 || w < 1 || n < 1) return cudaErrorInvalidValue;
-  const cudaError_t rc = hs::allow_hist_scratch(hs_desc_kernel);
+  if (h < 1 || w < 1 || n < 1 || frame_h < 1 || frame_w < 1)
+    return cudaErrorInvalidValue;
+  const hs::Frame frame{oy, ox, frame_h, frame_w, h, w};
+  const bool band = oy != 0 || ox != 0 || frame_h != h || frame_w != w;
+  const cudaError_t rc = band ? allow_scratch<true>() : allow_scratch<false>();
   if (rc != cudaSuccess) return rc;
-  hs_desc_kernel<<<(n + hs::kBlockPatches - 1) / hs::kBlockPatches,
-                   hs::kHistThreads, sizeof(hs::HistScratch),
-                   static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, kx, ky, size, angle, valid, n, scale, plan, wpack,
-      ori_scale, out);
+  const int blocks = (n + hs::kBlockPatches - 1) / hs::kBlockPatches;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (band)
+    hs_desc_kernel<true><<<blocks, hs::kHistThreads, sizeof(hs::HistScratch),
+                           st>>>(img, h, w, kx, ky, size, angle, valid, n,
+                                 scale, frame, plan, wpack, ori_scale, out);
+  else
+    hs_desc_kernel<false><<<blocks, hs::kHistThreads,
+                            sizeof(hs::HistScratch), st>>>(
+        img, h, w, kx, ky, size, angle, valid, n, scale, frame, plan, wpack,
+        ori_scale, out);
   return cudaGetLastError();
 }
 
 extern "C" int eff_hs_desc_blocks_per_sm(int* blocks) {
-  const cudaError_t rc = hs::allow_hist_scratch(hs_desc_kernel);
+  const cudaError_t rc = allow_scratch<false>();
   if (rc != cudaSuccess) return rc;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, hs_desc_kernel, hs::kHistThreads, sizeof(hs::HistScratch));
+      blocks, hs_desc_kernel<false>, hs::kHistThreads,
+      sizeof(hs::HistScratch));
 }

@@ -65,13 +65,19 @@ hs_hist_kernel(const uint8_t* __restrict__ patches, int n,
                  out + static_cast<size_t>(base) * 128);
 }
 
+cudaError_t allow_scratch() {
+  static bool done[64] = {};
+  return hs::allow_hist_scratch(reinterpret_cast<const void*>(hs_hist_kernel),
+                                done);
+}
+
 }  // namespace
 
 extern "C" int eff_hs_hist(const uint8_t* patches, int n, const int32_t* plan,
                            const float* wpack, float ori_scale, uint8_t* out,
                            void* stream) {
   if (n < 1) return cudaErrorInvalidValue;
-  const cudaError_t rc = hs::allow_hist_scratch(hs_hist_kernel);
+  const cudaError_t rc = allow_scratch();
   if (rc != cudaSuccess) return rc;
   hs_hist_kernel<<<(n + hs::kBlockPatches - 1) / hs::kBlockPatches,
                    hs::kHistThreads, sizeof(hs::HistScratch),
@@ -81,7 +87,7 @@ extern "C" int eff_hs_hist(const uint8_t* patches, int n, const int32_t* plan,
 }
 
 extern "C" int eff_hs_hist_blocks_per_sm(int* blocks) {
-  const cudaError_t rc = hs::allow_hist_scratch(hs_hist_kernel);
+  const cudaError_t rc = allow_scratch();
   if (rc != cudaSuccess) return rc;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, hs_hist_kernel, hs::kHistThreads, sizeof(hs::HistScratch));

@@ -49,6 +49,16 @@
 //     detect_and_compute call) takes it.
 //   - Direct branch, for a larger window (compute() takes keypoints up to
 //     300 px) or a keypoint far off the image: the samples read the image.
+//   - Bands.  The image may be a band of a larger frame (`hs::Frame`: the
+//     sharded pipeline describes a band's keypoints in frame coordinates):
+//     the in-image test is against the frame, the pixels are read at the
+//     band's rows, clamped into the band as the plain version clamps them.
+//     A band's launch takes the kernel's band instantiation (`kBand`); the
+//     whole image's takes the one without the clamps, which cost a tenth
+//     of the kernel's time, and without the band tests of the window.  The
+//     window branch is taken only where every valid sample's support lies
+//     in the band, so that no read is clamped; with the whole image as its
+//     frame that holds always.
 // Build with -fmad=false: every product and sum rounds on its own, as in
 // the plain version.
 #include <cuda_runtime.h>
@@ -74,19 +84,35 @@ struct Window {
   bool fits;   // staged in shared memory
 };
 
+// Whether the frame's part of [c - sup, c + sup] (frame rows or columns,
+// frame side n) lies in the image's [o, o + m): then no valid sample's read
+// is clamped.
+__device__ __forceinline__ bool span_in_image(int c, int sup, int n, int o,
+                                              int m) {
+  const int lo = max(c - sup, 0), hi = min(c + sup, n - 1);
+  return lo > hi || (lo >= o && hi < o + m);
+}
+
+// Without kBand the frame is the image (origin 0): the window needs no
+// band test.
+template <bool kBand>
 __device__ __forceinline__ Window warp_window(float x, float y, float s,
-                                              int img_h, int img_w) {
+                                              const hs::Frame& f) {
   const int sup = static_cast<int>(fminf(
                       ceilf(__fmul_rn(kSupport, fabsf(s))), kCoordCap)) + 2;
   const bool near = fabsf(x) < kCoordCap && fabsf(y) < kCoordCap;
   const int fy = near ? static_cast<int>(floorf(y)) : 0;
   const int fx = near ? static_cast<int>(floorf(x)) : 0;
+  const int oy = kBand ? f.oy : 0, ox = kBand ? f.ox : 0;
   Window win;
-  win.y0 = max(fy - sup, 0);
-  win.x0 = max(fx - sup, 0);
-  win.h = max(min(fy + sup, img_h - 1) - win.y0 + 1, 0);
-  win.w = max(min(fx + sup, img_w - 1) - win.x0 + 1, 0);
+  win.y0 = max(fy - oy - sup, 0);
+  win.x0 = max(fx - ox - sup, 0);
+  win.h = max(min(fy - oy + sup, f.h - 1) - win.y0 + 1, 0);
+  win.w = max(min(fx - ox + sup, f.w - 1) - win.x0 + 1, 0);
   win.fits = near && win.h <= kWinSide && win.w <= kWinSide;
+  if (kBand)
+    win.fits = win.fits && span_in_image(fy, sup, f.fh, oy, f.h)
+               && span_in_image(fx, sup, f.fw, ox, f.w);
   return win;
 }
 
@@ -96,36 +122,39 @@ __device__ __forceinline__ float byte_float(uint32_t b) {
   return __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f);
 }
 
-// The staged window: image pixel (vi, ui) at byte (vi - y0) * kWinStride +
-// off(vi - y0) + (ui - x0), off(r) = (a0 + r * w) % 16 with a0 the address
-// of pixel (y0, x0) (its low bits).
+// The staged window: image pixel (r, c) at byte (r - y0) * kWinStride +
+// off(r - y0) + (c - x0), off(i) = (a0 + i * w) % 16 with a0 the address
+// of pixel (y0, x0) (its low bits).  Row r1 (r0 or r0 + 1) is reached from
+// row r0: off(i + d) = (off(i) + d * w) % 16, which for the whole image's
+// r1 = r0 + 1 is one add.
 struct StagedFetch {
   const uint8_t* win;
   int y0, x0;
   uint32_t a0, w;
 
-  __device__ __forceinline__ void operator()(int vi, int ui, float& p00,
-                                             float& p01, float& p10,
-                                             float& p11) const {
-    const int r = vi - y0, c = ui - x0;
-    const uint32_t off0 = (a0 + static_cast<uint32_t>(r) * w) & 15u;
-    const uint32_t off1 = (off0 + w) & 15u;
-    const uint8_t* p = win + r * kWinStride + off0 + c;
-    const uint8_t* q = win + (r + 1) * kWinStride + off1 + c;
-    p00 = byte_float(p[0]);
-    p01 = byte_float(p[1]);
-    p10 = byte_float(q[0]);
-    p11 = byte_float(q[1]);
+  __device__ __forceinline__ void operator()(int r0, int r1, int c0, int c1,
+                                             float& p00, float& p01,
+                                             float& p10, float& p11) const {
+    const int i = r0 - y0, d = r1 - r0;
+    const uint32_t off0 = (a0 + static_cast<uint32_t>(i) * w) & 15u;
+    const uint32_t off1 = (off0 + static_cast<uint32_t>(d) * w) & 15u;
+    const uint8_t* p = win + i * kWinStride + off0 - x0;
+    const uint8_t* q = win + (i + d) * kWinStride + off1 - x0;
+    p00 = byte_float(p[c0]);
+    p01 = byte_float(p[c1]);
+    p10 = byte_float(q[c0]);
+    p11 = byte_float(q[c1]);
   }
 };
 
+template <bool kBand>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const uint8_t* __restrict__ img, int h, int w,
             const float* __restrict__ kx, const float* __restrict__ ky,
             const float* __restrict__ ksize,
             const float* __restrict__ kangle,
             const uint8_t* __restrict__ valid, int n, float scale,
-            uint8_t* __restrict__ out) {
+            hs::Frame frame, uint8_t* __restrict__ out) {
   __shared__ __align__(16) uint8_t s_win[kWinSide * kWinStride];
   __shared__ hs::Affine s_affine;
   const int k = blockIdx.x, t = threadIdx.x;
@@ -136,7 +165,8 @@ warp_kernel(const uint8_t* __restrict__ img, int h, int w,
     return;
   }
   const float x = kx[k], y = ky[k], size = ksize[k];
-  const Window win = warp_window(x, y, hs::keypoint_scale(size, scale), h, w);
+  const Window win =
+      warp_window<kBand>(x, y, hs::keypoint_scale(size, scale), frame);
   if (t == 0) {
     const hs::Trig trig = hs::keypoint_trig(size, kangle[k], scale);
     s_affine = hs::keypoint_affine(x, y, trig.c, trig.sn);
@@ -157,12 +187,13 @@ warp_kernel(const uint8_t* __restrict__ img, int h, int w,
   __syncthreads();
   const hs::Affine a = s_affine;
   if (win.fits) {
-    row[t] = hs::sample_word(
+    row[t] = hs::sample_word<kBand>(
         StagedFetch{s_win, win.y0, win.x0, static_cast<uint32_t>(a0),
                     static_cast<uint32_t>(w)},
-        h, w, a, 4 * t);
+        frame, a, 4 * t);
   } else {
-    row[t] = hs::sample_word(hs::GlobalFetch{img, w}, h, w, a, 4 * t);
+    row[t] = hs::sample_word<kBand>(hs::GlobalFetch{img, w}, frame, a,
+                                    4 * t);
   }
 }
 
@@ -182,14 +213,23 @@ __global__ void trig_kernel(const float* __restrict__ ksize,
 
 }  // namespace
 
-extern "C" int eff_warp_patches(const uint8_t* img, int h, int w,
+extern "C" int eff_warp_patches(const uint8_t* img, int h, int w, int oy,
+                                int ox, int frame_h, int frame_w,
                                 const float* kx, const float* ky,
                                 const float* size, const float* angle,
                                 const uint8_t* valid, int n, float scale,
                                 uint8_t* out, void* stream) {
-  if (h < 1 || w < 1 || n < 1) return cudaErrorInvalidValue;
-  warp_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, h, w, kx, ky, size, angle, valid, n, scale, out);
+  if (h < 1 || w < 1 || n < 1 || frame_h < 1 || frame_w < 1)
+    return cudaErrorInvalidValue;
+  const hs::Frame frame{oy, ox, frame_h, frame_w, h, w};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (oy != 0 || ox != 0 || frame_h != h || frame_w != w)
+    warp_kernel<true><<<n, kThreads, 0, st>>>(img, h, w, kx, ky, size, angle,
+                                              valid, n, scale, frame, out);
+  else
+    warp_kernel<false><<<n, kThreads, 0, st>>>(img, h, w, kx, ky, size,
+                                               angle, valid, n, scale, frame,
+                                               out);
   return cudaGetLastError();
 }
 

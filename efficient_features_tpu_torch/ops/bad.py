@@ -9,6 +9,12 @@ order as the JAX version; nothing here may be fused into an FMA.
 `window_plan` is the window of the image from which K3 sums a keypoint's
 boxes (csrc/bad_descriptors.cu computes the same), and `window_box` a box's
 corners in that window.
+
+`origin` / `frame_hw` (as the JAX package's): the image may hold only rows
+and columns from `origin` (oy, ox) on of a `frame_hw` frame, as a band of a
+row-sharded image does; keypoints stay in frame coordinates, box corners
+are rounded there, and the border test and the border boxes' clamps use the
+frame.  The defaults are the whole image.
 """
 from __future__ import annotations
 
@@ -48,23 +54,29 @@ class WindowPlan(NamedTuple):
     in_smem: torch.Tensor
 
 
-def window_plan(x, y, s, img_h: int, img_w: int) -> WindowPlan:
-    """K3's window of each keypoint (x, y) at affine scale s (float32).
+def window_plan(x, y, s, img_h: int, img_w: int, origin=(0, 0),
+                frame_hw=None) -> WindowPlan:
+    """K3's window of each keypoint (x, y) at affine scale s (float32), in
+    image rows and columns (`origin`, `frame_hw` as for `bad_descriptors`).
 
     Every box of the keypoint lies within sup = ceil(BAD_SUPPORT * s) + 3
     px of (floor(x), floor(y)): the 3 px cover the rounding of the box
     centre (trunc(v + 0.5) is up to 1.5 above v for negative v) and of the
-    radius, and the exclusive corner.  So the window [floor - sup, floor +
-    sup + 2) clipped to the image holds the part of every box inside the
-    image, and every box clamped to the image."""
+    radius, and the exclusive corner.  The window reaches, in frame rows,
+    from min(floor - sup, frame_h - 1) to max(floor + sup + 2, 1) (the edge
+    row onto which a box wholly outside the frame is clamped), clipped to
+    the image: so it holds the part of every box inside the image, and of
+    every box clamped to the frame."""
+    fh, fw = (img_h, img_w) if frame_hw is None else frame_hw
+    oy, ox = origin
     sup = torch.clamp(torch.ceil(s.clamp(min=0.0) * np.float32(BAD_SUPPORT)),
                       max=SUPPORT_CAP).to(torch.int32) + 3
     fy = torch.floor(y.clamp(-COORD_CAP, COORD_CAP)).to(torch.int32)
     fx = torch.floor(x.clamp(-COORD_CAP, COORD_CAP)).to(torch.int32)
-    y0 = (fy - sup).clamp(0, img_h - 1)
-    x0 = (fx - sup).clamp(0, img_w - 1)
-    h = (fy + sup + 2).clamp(1, img_h) - y0
-    w = (fx + sup + 2).clamp(1, img_w) - x0
+    y0 = ((fy - sup).clamp(max=fh - 1) - oy).clamp(0, img_h - 1)
+    x0 = ((fx - sup).clamp(max=fw - 1) - ox).clamp(0, img_w - 1)
+    h = ((fy + sup + 2).clamp(min=1) - oy).clamp(1, img_h) - y0
+    w = ((fx + sup + 2).clamp(min=1) - ox).clamp(1, img_w) - x0
     in_smem = (w <= WINDOW_MAX_W) & ((h + 1) * (w + 1) <= WINDOW_CAP)
     return WindowPlan(y0, x0, h, w, sup, in_smem)
 
@@ -157,41 +169,49 @@ def integral_boxes(integral: torch.Tensor):
 
 
 def bad_descriptors(integral: torch.Tensor, x, y, size, angle, valid, *,
-                    nbits: int = 256, scale_factor: float = 1.0
-                    ) -> torch.Tensor:
-    """(N, nbits//8) uint8 descriptors from an (H+1, W+1) int32 integral.
+                    nbits: int = 256, scale_factor: float = 1.0,
+                    origin=(0, 0), frame_hw=None) -> torch.Tensor:
+    """(N, nbits//8) uint8 descriptors from an (H+1, W+1) int32 integral of
+    the image, which holds the rows and columns from `origin` on of a
+    `frame_hw` frame (default: the whole frame).
 
     Invalid slots give zero rows."""
     fh, fw = integral.shape
-    return bad_descriptors_from_boxes(integral_boxes(integral), fh - 1,
-                                      fw - 1, x, y, size, angle, valid,
-                                      nbits=nbits, scale_factor=scale_factor)
+    if frame_hw is None:
+        frame_hw = (fh - 1, fw - 1)
+    return bad_descriptors_from_boxes(integral_boxes(integral), *frame_hw,
+                                      x, y, size, angle, valid,
+                                      nbits=nbits, scale_factor=scale_factor,
+                                      origin=origin)
 
 
 def bad_descriptors_from_boxes(box, img_h: int, img_w: int, x, y, size,
                                angle, valid, *, nbits: int = 256,
-                               scale_factor: float = 1.0) -> torch.Tensor:
+                               scale_factor: float = 1.0,
+                               origin=(0, 0)) -> torch.Tensor:
     """`bad_descriptors` with the box sums from `box(y1, x1, y2, x2)`, which
     must give the sum of the image, zero outside it, over the box (exact
-    int32 or wrapping alike)."""
+    int32 or wrapping alike).  img_h, img_w: the frame; `box` takes corners
+    in image coordinates, frame coordinates less `origin`."""
     params = bad_params(nbits, str(x.device))
     tx1, ty1, tx2, ty2, tbr = box_centres(x, y, size, angle, params,
                                           scale_factor)
     th = params.thresholds[None, :]
     x = x[:, None]
     y = y[:, None]
+    oy, ox = origin
 
     def box_sum_clamped(cx, cy, r):
         x1 = (cx - r).clamp(0, img_w - 1)
         y1 = (cy - r).clamp(0, img_h - 1)
         x2 = (cx + r + 1).clamp(1, img_w)
         y2 = (cy + r + 1).clamp(1, img_h)
-        return box(y1, x1, y2, x2), (y2 - y1) * (x2 - x1)
+        return box(y1 - oy, x1 - ox, y2 - oy, x2 - ox), (y2 - y1) * (x2 - x1)
 
     def box_sum_fast(cx, cy, r):
         # interior path: a box's part outside the image (only at tiny s)
         # counts 0
-        return box(cy - r, cx - r, cy + r + 1, cx + r + 1)
+        return box(cy - r - oy, cx - r - ox, cy + r + 1 - oy, cx + r + 1 - ox)
 
     # division-free border compare s1*a2 - s2*a1 <= th*a1*a2: exact int32
     # products while a1*a2 < 2^22, else 12-significant-bit operands whose

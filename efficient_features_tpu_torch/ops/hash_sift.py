@@ -171,9 +171,11 @@ class WarpWindow(NamedTuple):
     in_smem: torch.Tensor
 
 
-def warp_window_plan(x, y, s, img_h: int, img_w: int) -> WarpWindow:
+def warp_window_plan(x, y, s, img_h: int, img_w: int, origin=(0, 0),
+                     frame_hw=None) -> WarpWindow:
     """K4's window of each keypoint (x, y) at affine scale s (float32,
-    finite).
+    finite), in image rows and columns (`origin`, `frame_hw` as for
+    `warp_patches`).
 
     Every sample's 2x2 support lies within sup = ceil(WARP_SUPPORT |s|) + 2
     px of (floor(x), floor(y)): one pixel for the support's far side and
@@ -181,26 +183,48 @@ def warp_window_plan(x, y, s, img_h: int, img_w: int) -> WarpWindow:
     pixel while |x|, |y| < COORD_CAP.  So the window [floor - sup, floor +
     sup] clipped to the image holds every sample's support that lies in
     the image, and the samples read the same pixels from it as from the
-    image."""
+    image.  K4 stages it only where, besides, the frame's part of [floor -
+    sup, floor + sup] lies in the image, so that no valid sample's read is
+    clamped (always, for the whole image as its frame)."""
+    fh, fw = (img_h, img_w) if frame_hw is None else frame_hw
+    oy, ox = origin
     sup = torch.clamp(torch.ceil(s.abs() * np.float32(WARP_SUPPORT)),
                       max=COORD_CAP).to(torch.int32) + 2
     near = (x.abs() < COORD_CAP) & (y.abs() < COORD_CAP)
     fy = torch.where(near, torch.floor(y), 0.0).to(torch.int32)
     fx = torch.where(near, torch.floor(x), 0.0).to(torch.int32)
-    y0 = (fy - sup).clamp(min=0)
-    x0 = (fx - sup).clamp(min=0)
-    h = ((fy + sup).clamp(max=img_h - 1) - y0 + 1).clamp(min=0)
-    w = ((fx + sup).clamp(max=img_w - 1) - x0 + 1).clamp(min=0)
-    in_smem = near & (h <= WARP_WINDOW_SIDE) & (w <= WARP_WINDOW_SIDE)
+    y0 = (fy - oy - sup).clamp(min=0)
+    x0 = (fx - ox - sup).clamp(min=0)
+    h = ((fy - oy + sup).clamp(max=img_h - 1) - y0 + 1).clamp(min=0)
+    w = ((fx - ox + sup).clamp(max=img_w - 1) - x0 + 1).clamp(min=0)
+
+    def span_in_image(c, n, o, m):
+        lo, hi = (c - sup).clamp(min=0), (c + sup).clamp(max=n - 1)
+        return (lo > hi) | ((lo >= o) & (hi < o + m))
+
+    in_smem = (near & (h <= WARP_WINDOW_SIDE) & (w <= WARP_WINDOW_SIDE)
+               & span_in_image(fy, fh, oy, img_h)
+               & span_in_image(fx, fw, ox, img_w))
     return WarpWindow(y0, x0, h, w, in_smem)
 
 
 def warp_patches(image: torch.Tensor, x, y, size, angle,
-                 cropping_scale: float) -> torch.Tensor:
+                 cropping_scale: float, origin=(0, 0),
+                 frame_hw=None) -> torch.Tensor:
     """(N, 32, 32) float32 warped patches (values already u8-quantised):
     bilinear samples of the uint8 image under the keypoint affine, 0 where a
-    sample's 2x2 support leaves the image."""
+    sample's 2x2 support leaves the frame.
+
+    `origin` / `frame_hw` (as the JAX package's): the image may hold the
+    rows and columns from `origin` (oy, ox) on of a `frame_hw` frame, a band
+    of a row-sharded image; keypoints stay in frame coordinates, the
+    validity test uses the frame, and a sample reads the image at its
+    support less the origin, clamped into the image.  The index is 2-D, as
+    in the JAX package, so a 1-row or 1-column image reads row or column
+    -1, which is its only one."""
     h, w = image.shape
+    fh, fw = (h, w) if frame_hw is None else frame_hw
+    oy, ox = origin
     m00, m01, m02, m10, m11, m12, _ = affine_rows(
         x[:, None, None], y[:, None, None], size[:, None, None],
         angle[:, None, None], cropping_scale)
@@ -212,18 +236,17 @@ def warp_patches(image: torch.Tensor, x, y, size, angle,
 
     ui = torch.floor(u).to(torch.int32)
     vi = torch.floor(v).to(torch.int32)
-    valid = (ui >= 0) & (ui + 1 < w) & (vi >= 0) & (vi + 1 < h)
-    uic = ui.clamp(0, w - 2).long()
-    vic = vi.clamp(0, h - 2).long()
+    valid = (ui >= 0) & (ui + 1 < fw) & (vi >= 0) & (vi + 1 < fh)
+    uic = (ui - ox).clamp(0, w - 2).long()
+    vic = (vi - oy).clamp(0, h - 2).long()
     du = u - ui.to(torch.float32)
     dv = v - vi.to(torch.float32)
 
-    flat = image.reshape(-1).to(torch.float32)
-    base = vic * w + uic
-    p00 = flat[base]
-    p01 = flat[base + 1]
-    p10 = flat[base + w]
-    p11 = flat[base + w + 1]
+    im = image.to(torch.float32)
+    p00 = im[vic, uic]
+    p01 = im[vic, uic + 1]
+    p10 = im[vic + 1, uic]
+    p11 = im[vic + 1, uic + 1]
     # the reference's full-f32 lerp (cpu.descriptors.warp_patches)
     h0 = 1.0 - du
     z_top = h0 * p00 + du * p01
@@ -281,12 +304,14 @@ def patch_sift_responses(patches: torch.Tensor) -> torch.Tensor:
 
 
 def hash_sift_descriptors(image: torch.Tensor, x, y, size, angle, valid, *,
-                          nbits: int = 256, cropping_scale: float = 1.0
-                          ) -> torch.Tensor:
-    """(N, nbits//8) uint8 HashSIFT descriptors; invalid slots are zero."""
+                          nbits: int = 256, cropping_scale: float = 1.0,
+                          origin=(0, 0), frame_hw=None) -> torch.Tensor:
+    """(N, nbits//8) uint8 HashSIFT descriptors; invalid slots are zero.
+    `origin`, `frame_hw` as for `warp_patches`."""
     B = torch.from_numpy(load_hash_sift_matrix(nbits)).to(image.device)
     responses = patch_sift_responses(
-        warp_patches(image, x, y, size, angle, cropping_scale))
+        warp_patches(image, x, y, size, angle, cropping_scale, origin,
+                     frame_hw))
     with full_f32_matmul():
         proj = responses @ B.T
     bits = (proj > 0) & valid[:, None]

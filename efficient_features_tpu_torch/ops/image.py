@@ -13,6 +13,11 @@ plain version and what a CPU tensor takes.
 `resize_u8_fast` picks by the tensor's device, and `build_pyramid` calls it.
 The JAX package's `pallas_resize` switch has no counterpart: the two give
 the same bytes, so the card always takes the kernel.
+All three take `band=` (`BandRows`): the destination rows of one band of a
+row-sharded pyramid level, resized from the band of the level below plus
+its exchanged halo rows, with the whole level's row table sliced and
+rebased (`parallel/sharding.py`), so that the band's pixels are those of
+the whole level.
 """
 from __future__ import annotations
 
@@ -57,8 +62,12 @@ def resize_table(dst_n: int, src_n: int) -> np.ndarray:
     if src_n > 1 << RESIZE_INDEX_BITS:
         raise ValueError(f"K10 takes at most {1 << RESIZE_INDEX_BITS} "
                          f"source pixels a side, got {src_n}")
-    i0, i1, w1 = (a.astype(np.uint32)
-                  for a in S.resize_axis_coeffs(dst_n, src_n))
+    return _pack_taps(*S.resize_axis_coeffs(dst_n, src_n))
+
+
+def _pack_taps(i0, i1, w1) -> np.ndarray:
+    """K10's table words i0 | (i1 - i0) << 19 | w1 << 20 (uint32)."""
+    i0, i1, w1 = (np.asarray(a).astype(np.uint32) for a in (i0, i1, w1))
     return (i0 | (i1 - i0) << RESIZE_INDEX_BITS
             | w1 << (RESIZE_INDEX_BITS + 1))
 
@@ -107,14 +116,66 @@ def resize_plan(dst_hw: tuple[int, int],
         x0[None, :], span[None, :], stride[None, :], staged)))
 
 
-@functools.lru_cache(maxsize=128)
-def _resize_launch(h: int, w: int, sh: int, sw: int,
-                   device: torch.device) -> tuple[torch.Tensor, int, int]:
-    """K10's packed tables of one (dst, src) shape on `device`: the (h + w,)
-    tensor (held here, so that its pointers stay valid) and the raw
-    pointers of its y and x parts."""
+class BandRows(NamedTuple):
+    """Destination rows [start, start + count) of the (dst_n <- src_n) row
+    table of a resize, rows past dst_n taking the last row's taps (a band
+    padded to the mesh), with the source rows rebased to a band of the
+    source that starts at row `base` and holds `src_rows` rows, and clipped
+    to it (as `efficient_features_tpu/parallel/sharding.py:408-422`)."""
+    dst_n: int
+    src_n: int
+    start: int
+    count: int
+    base: int
+    src_rows: int
+
+
+@functools.lru_cache(maxsize=512)
+def band_row_taps(band: BandRows) -> tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+    """(i0, i1, w1) of a band's destination rows in its source band:
+    `semantics.resize_axis_coeffs`, sliced, rebased and clipped."""
+    i0, i1, w1 = S.resize_axis_coeffs(band.dst_n, band.src_n)
+    rows = np.minimum(np.arange(band.start, band.start + band.count),
+                      band.dst_n - 1)
+    return (np.clip(i0[rows] - band.base, 0, band.src_rows - 1),
+            np.clip(i1[rows] - band.base, 0, band.src_rows - 1),
+            w1[rows])
+
+
+def _check_band(band: BandRows | None, h: int, sh: int) -> None:
+    if band is not None and (band.count, band.src_rows) != (h, sh):
+        raise ValueError(f"band {band} does not resize {sh} source rows to "
+                         f"{h}")
+
+
+def _row_taps(h: int, sh: int, band: BandRows | None, device):
+    """(i0, i1 int64, w1 int32) tensors of the destination rows."""
+    if band is None:
+        return _resize_tables(h, sh, device)
+    _check_band(band, h, sh)
+    return _band_tables(band, device)
+
+
+@functools.lru_cache(maxsize=512)
+def _band_tables(band: BandRows, device: torch.device):
+    i0, i1, w1 = band_row_taps(band)
+    return (torch.from_numpy(i0.astype(np.int64)).to(device),
+            torch.from_numpy(i1.astype(np.int64)).to(device),
+            torch.from_numpy(w1.astype(np.int32)).to(device))
+
+
+@functools.lru_cache(maxsize=512)
+def _resize_launch(h: int, w: int, sh: int, sw: int, device: torch.device,
+                   band: BandRows | None = None
+                   ) -> tuple[torch.Tensor, int, int]:
+    """K10's packed tables of one (dst, src) shape, or of one band, on
+    `device`: the (h + w,) tensor (held here, so that its pointers stay
+    valid) and the raw pointers of its y and x parts."""
+    ytab = resize_table(h, sh) if band is None else _pack_taps(
+        *band_row_taps(band))
     t = torch.from_numpy(np.concatenate(
-        [resize_table(h, sh), resize_table(w, sw)]).view(np.int32)).to(device)
+        [ytab, resize_table(w, sw)]).view(np.int32)).to(device)
     return t, t.data_ptr(), t.data_ptr() + 4 * h
 
 
@@ -125,12 +186,14 @@ def _reflect101_pad3(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(idx).to(device)
 
 
-def resize_u8(src: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
-    """Separable bilinear resize of a (H, W) uint8 image, 11-bit fixed point."""
+def resize_u8(src: torch.Tensor, dst_hw: tuple[int, int],
+              band: BandRows | None = None) -> torch.Tensor:
+    """Separable bilinear resize of a (H, W) uint8 image, 11-bit fixed point
+    (of one band of a level: `band`, with dst_hw[0] == band.count)."""
     h, w = dst_hw
     sh, sw = src.shape
     x0, x1, wx1 = _resize_tables(w, sw, src.device)
-    y0, y1, wy1 = _resize_tables(h, sh, src.device)
+    y0, y1, wy1 = _row_taps(h, sh, band, src.device)
     one = 1 << S.RESIZE_BITS
     a = src.to(torch.int32)
     hpass = (a.index_select(1, x0) * (one - wx1)[None, :]
@@ -141,13 +204,15 @@ def resize_u8(src: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
-def resize_u8_kernel(src: torch.Tensor,
-                     dst_hw: tuple[int, int]) -> torch.Tensor:
+def resize_u8_kernel(src: torch.Tensor, dst_hw: tuple[int, int],
+                     band: BandRows | None = None) -> torch.Tensor:
     """K10: `resize_u8` of a contiguous (H, W) uint8 CUDA tensor, bit for
     bit, in one kernel launch.  The index and weight tables stay the host's
     (`semantics.resize_axis_coeffs`, float64 math), packed by `resize_table`
-    and cached on the device per shape with their pointers, so that a call
-    does one lookup, one allocation and one launch."""
+    and cached on the device per shape (and band) with their pointers, so
+    that a call does one lookup, one allocation and one launch.  A band's
+    row table starts at any source row; the kernel plans each tile from its
+    table entries, wherever they point."""
     require_cuda(src, torch.uint8, "src")
     if src.dim() != 2:
         raise ValueError(f"src must be 2-D, got shape {tuple(src.shape)}")
@@ -155,7 +220,8 @@ def resize_u8_kernel(src: torch.Tensor,
     sh, sw = src.shape
     if min(h, w, sh, sw) < 1:
         raise ValueError(f"cannot resize {sh}x{sw} to {h}x{w}")
-    _, ytab, xtab = _resize_launch(h, w, sh, sw, src.device)
+    _check_band(band, h, sh)
+    _, ytab, xtab = _resize_launch(h, w, sh, sw, src.device, band)
     out = torch.empty((h, w), dtype=torch.uint8, device=src.device)
     lib = _build.library()
     with torch.cuda.device(src.device):
@@ -169,13 +235,13 @@ def resize_u8_kernel(src: torch.Tensor,
 resize_u8_kernel.launches = 0
 
 
-def resize_u8_fast(src: torch.Tensor,
-                   dst_hw: tuple[int, int]) -> torch.Tensor:
+def resize_u8_fast(src: torch.Tensor, dst_hw: tuple[int, int],
+                   band: BandRows | None = None) -> torch.Tensor:
     """`resize_u8`: through K10 for a CUDA tensor, the plain version for a
     CPU tensor.  The same bytes either way."""
     if src.device.type == "cpu":
-        return resize_u8(src, dst_hw)
-    return resize_u8_kernel(src, dst_hw)
+        return resize_u8(src, dst_hw, band)
+    return resize_u8_kernel(src, dst_hw, band)
 
 
 def build_pyramid(image: torch.Tensor, scale_factor: float,

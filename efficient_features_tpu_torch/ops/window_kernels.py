@@ -15,6 +15,12 @@ compute the affine themselves, so a wrapper runs no torch op besides
 allocating its output.
 Each wrapper runs its plain version for a CPU tensor and launches its CUDA
 kernel for a CUDA tensor; `<wrapper>.launches` counts kernel launches.
+
+The descriptor kernels (K3, K4, K11) take `origin` (oy, ox) and `frame_hw`
+(fh, fw): the image may be a band holding the rows and columns from
+`origin` on of a larger frame, and the keypoints are in frame coordinates
+(the sharded pipeline's bands, `parallel/sharding.py`).  The defaults are
+the whole image, with which nothing changes.
 """
 from __future__ import annotations
 
@@ -170,6 +176,13 @@ def keypoint_trig(size: torch.Tensor, angle: torch.Tensor, scale: float):
 keypoint_trig.launches = 0
 
 
+def _frame(image: torch.Tensor, origin, frame_hw) -> tuple[int, ...]:
+    """(oy, ox, fh, fw) of an image that holds the rows and columns from
+    `origin` on of a `frame_hw` frame (None: the image's shape)."""
+    fh, fw = image.shape if frame_hw is None else frame_hw
+    return int(origin[0]), int(origin[1]), int(fh), int(fw)
+
+
 def _valid_bytes(valid: torch.Tensor) -> torch.Tensor:
     """A bool valid mask as the kernels read it: its bytes, contiguous on
     the card (a view, no copy, of a contiguous bool tensor)."""
@@ -190,15 +203,18 @@ def _keypoint_args(x, y, size, angle, valid):
 
 
 def bad_descriptors_windows_ref(image, x, y, size, angle, valid, nbits: int,
-                                scale_factor: float = 1.0) -> torch.Tensor:
+                                scale_factor: float = 1.0, origin=(0, 0),
+                                frame_hw=None) -> torch.Tensor:
     """Plain version of K3: `bad.bad_descriptors` over the image's
     integral."""
     return B.bad_descriptors(I.integral_image_i32(image), x, y, size, angle,
-                             valid, nbits=nbits, scale_factor=scale_factor)
+                             valid, nbits=nbits, scale_factor=scale_factor,
+                             origin=origin, frame_hw=frame_hw)
 
 
 def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
-                            scale_factor: float = 1.0) -> torch.Tensor:
+                            scale_factor: float = 1.0, origin=(0, 0),
+                            frame_hw=None) -> torch.Tensor:
     """(N, nbits//8) uint8 BAD descriptors of keypoints (x, y, size, angle)
     on a uint8 image; invalid slots give zero rows.
 
@@ -210,8 +226,10 @@ def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
     integral, and the kernel computes each keypoint's trig itself."""
     if image.device.type == "cpu":
         return bad_descriptors_windows_ref(image, x, y, size, angle, valid,
-                                           nbits, scale_factor)
+                                           nbits, scale_factor, origin,
+                                           frame_hw)
     require_cuda(image, torch.uint8, "image")
+    frame = _frame(image, origin, frame_hw)
     params = bad_params(nbits, str(image.device))
     h, w = image.shape
     n = x.shape[0]
@@ -225,7 +243,7 @@ def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
     lib = _build.library()
     with torch.cuda.device(image.device):
         rc = lib.eff_bad_descriptors(
-            image.data_ptr(), h, w, *(t.data_ptr() for t in kp), n,
+            image.data_ptr(), h, w, *frame, *(t.data_ptr() for t in kp), n,
             scale_factor, params.boxes.data_ptr(),
             params.thresholds.data_ptr(), nbits, integral.data_ptr(),
             flag.data_ptr(), out.data_ptr(), stream_of(image))
@@ -238,15 +256,18 @@ bad_descriptors_windows.launches = 0
 
 
 def warp_patches_windows_ref(image, x, y, size, angle, valid,
-                             scale: float = 1.0) -> torch.Tensor:
+                             scale: float = 1.0, origin=(0, 0),
+                             frame_hw=None) -> torch.Tensor:
     """Plain version of K4: `hash_sift.warp_patches` as u8 rows, zero rows
     for invalid slots."""
-    p = HS.warp_patches(image, x, y, size, angle, scale).reshape(-1, 1024)
+    p = HS.warp_patches(image, x, y, size, angle, scale, origin,
+                        frame_hw).reshape(-1, 1024)
     return torch.where(valid[:, None], p, torch.zeros_like(p)).to(torch.uint8)
 
 
 def warp_patches_windows(image, x, y, size, angle, valid,
-                         scale: float = 1.0) -> torch.Tensor:
+                         scale: float = 1.0, origin=(0, 0),
+                         frame_hw=None) -> torch.Tensor:
     """(N, 1024) uint8 32x32 patches of keypoints (x, y, size, angle) on a
     uint8 image, bilinear under the keypoint affine; invalid slots give
     zero rows.
@@ -258,8 +279,10 @@ def warp_patches_windows(image, x, y, size, angle, valid,
     serve every keypoint size: no `_big` twin for sizes above `_S_BASE`, no
     gather path above `_S_CAP` and no octave buckets."""
     if image.device.type == "cpu":
-        return warp_patches_windows_ref(image, x, y, size, angle, valid, scale)
+        return warp_patches_windows_ref(image, x, y, size, angle, valid, scale,
+                                        origin, frame_hw)
     require_cuda(image, torch.uint8, "image")
+    frame = _frame(image, origin, frame_hw)
     h, w = image.shape
     n = x.shape[0]
     out = torch.empty((n, 1024), dtype=torch.uint8, device=image.device)
@@ -268,7 +291,7 @@ def warp_patches_windows(image, x, y, size, angle, valid,
     kp = _keypoint_args(x, y, size, angle, valid)
     lib = _build.library()
     with torch.cuda.device(image.device):
-        rc = lib.eff_warp_patches(image.data_ptr(), h, w,
+        rc = lib.eff_warp_patches(image.data_ptr(), h, w, *frame,
                                   *(t.data_ptr() for t in kp), n, scale,
                                   out.data_ptr(), stream_of(image))
         _build.check(rc, "warp_patches_windows")
@@ -318,14 +341,17 @@ hs_hist_from_patches.launches = 0
 
 
 def hs_desc_windows_ref(image, x, y, size, angle, valid,
-                        scale: float = 1.0) -> torch.Tensor:
+                        scale: float = 1.0, origin=(0, 0),
+                        frame_hw=None) -> torch.Tensor:
     """Plain version of K11: the plain histogram of the plain warp."""
     return hs_hist_from_patches_ref(
-        warp_patches_windows_ref(image, x, y, size, angle, valid, scale))
+        warp_patches_windows_ref(image, x, y, size, angle, valid, scale,
+                                 origin, frame_hw))
 
 
 def hs_desc_windows(image, x, y, size, angle, valid,
-                    scale: float = 1.0) -> torch.Tensor:
+                    scale: float = 1.0, origin=(0, 0),
+                    frame_hw=None) -> torch.Tensor:
     """(N, 128) uint8 quantised SIFT rows, orientation-major, of keypoints
     (x, y, size, angle) on a uint8 image: `hs_hist_from_patches` of
     `warp_patches_windows` in one kernel, the patch never leaving the chip.
@@ -333,8 +359,10 @@ def hs_desc_windows(image, x, y, size, angle, valid,
     of the device code, csrc/hs_common.cuh).  Invalid slots give zero rows;
     keypoints of any size."""
     if image.device.type == "cpu":
-        return hs_desc_windows_ref(image, x, y, size, angle, valid, scale)
+        return hs_desc_windows_ref(image, x, y, size, angle, valid, scale,
+                                   origin, frame_hw)
     require_cuda(image, torch.uint8, "image")
+    frame = _frame(image, origin, frame_hw)
     h, w = image.shape
     n = x.shape[0]
     out = torch.empty((n, 128), dtype=torch.uint8, device=image.device)
@@ -344,7 +372,7 @@ def hs_desc_windows(image, x, y, size, angle, valid,
     plan, wpack = HS.hist_plan_on(str(image.device))
     lib = _build.library()
     with torch.cuda.device(image.device):
-        rc = lib.eff_hs_desc(image.data_ptr(), h, w,
+        rc = lib.eff_hs_desc(image.data_ptr(), h, w, *frame,
                              *(t.data_ptr() for t in kp), n, scale,
                              plan.data_ptr(),
                              wpack.data_ptr(), HS.ORI_SCALE, out.data_ptr(),

@@ -167,22 +167,54 @@ def level_slot_ranges(cfg: FeatureConfig, img_h: int, img_w: int):
     return tuple(out)
 
 
+def _mask_tables(h0: int, w0: int, h: int, w: int, dev):
+    """The level-0 rows (h,) and columns (w,) that the pixels of an (h, w)
+    level take from an (h0, w0) mask: the nearest neighbour of its
+    half-pixel center, row (2y + 1) * h0 // (2h), clipped, in exact
+    integers as the JAX package's `_mask_pyramid` (float coordinates drift
+    by one pixel at some level)."""
+    yy = ((torch.arange(h, device=dev) * 2 + 1) * h0 // (2 * h)).clamp(
+        0, h0 - 1)
+    xx = ((torch.arange(w, device=dev) * 2 + 1) * w0 // (2 * w)).clamp(
+        0, w0 - 1)
+    return yy, xx
+
+
 def _mask_pyramid(mask: torch.Tensor, shapes) -> list[torch.Tensor]:
-    """Nearest-neighbour ROI mask per pyramid level (bool): level pixel
-    (y, x) takes the level-0 pixel its half-pixel center falls on, row
-    (2y + 1) * h0 // (2h), clipped, in exact integers as the JAX package's
-    `_mask_pyramid` (float coordinates drift by one pixel at some level)."""
+    """Nearest-neighbour ROI mask per pyramid level (bool), through
+    `_mask_tables`."""
     base = mask != 0
-    h0, w0 = shapes[0]
-    dev = mask.device
     levels = [base]
     for (h, w) in shapes[1:]:
-        yy = ((torch.arange(h, device=dev) * 2 + 1) * h0 // (2 * h)
-              ).clamp(0, h0 - 1)
-        xx = ((torch.arange(w, device=dev) * 2 + 1) * w0 // (2 * w)
-              ).clamp(0, w0 - 1)
+        yy, xx = _mask_tables(*shapes[0], h, w, mask.device)
         levels.append(base.index_select(0, yy).index_select(1, xx))
     return levels
+
+
+def _level_slots(s: int, scale, quota: int, ys, xs, r, ang,
+                 valid) -> dict:
+    """Level s's `quota` slots in image coordinates, from its selection in
+    level coordinates; `scale` the level's (float32) pyramid scale."""
+    sc = float(scale)
+    dev = ys.device
+    # scalePoints (cuda_efficient_features.cu:236-248): trunc(sc*x + 0.5)
+    return {
+        "x": torch.trunc(sc * xs.to(torch.float32) + 0.5),
+        "y": torch.trunc(sc * ys.to(torch.float32) + 0.5),
+        "response": r,
+        "angle": ang,
+        "octave": torch.full((quota,), s, dtype=torch.int32, device=dev),
+        "size": torch.full((quota,), float(scale * np.float32(S.PATCH_SIZE)),
+                           dtype=torch.float32, device=dev),
+        "valid": valid,
+    }
+
+
+def _join_slots(levels: list[dict]) -> dict:
+    """The per-level slot dicts, concatenated, with their valid count."""
+    slots = {k: torch.cat([lv[k] for lv in levels]) for k in levels[0]}
+    slots["count"] = slots["valid"].sum(dtype=torch.int32)
+    return slots
 
 
 def detect_core(image: torch.Tensor, cfg: FeatureConfig,
@@ -197,38 +229,20 @@ def detect_core(image: torch.Tensor, cfg: FeatureConfig,
     levels = ops_image.build_pyramid(image, cfg.scale_factor, cfg.nlevels)
     scales = S.pyramid_scales(cfg.scale_factor, cfg.nlevels)
     quotas = cfg.quotas()
-    dev = image.device
     masks = (_mask_pyramid(mask, S.pyramid_shapes(h0, w0, cfg.scale_factor,
                                                  cfg.nlevels))
              if mask is not None else [None] * cfg.nlevels)
 
-    outs = {k: [] for k in
-            ("x", "y", "response", "angle", "octave", "size", "valid",
-             "x_level", "y_level")}
+    parts = []
     per_level = []
     for s in range(cfg.first_level, cfg.nlevels):
         quota = min(quotas[s], int(np.prod(levels[s].shape)))
         ys, xs, r, ang, valid = _detect_level(levels[s], quota, cfg,
                                               masks[s])
         per_level.append((s, ys, xs, valid, ang))
-        sc = float(scales[s])
-        # scalePoints (cuda_efficient_features.cu:236-248): trunc(sc*x + 0.5)
-        outs["x"].append(torch.trunc(sc * xs.to(torch.float32) + 0.5))
-        outs["y"].append(torch.trunc(sc * ys.to(torch.float32) + 0.5))
-        outs["response"].append(r)
-        outs["angle"].append(ang)
-        outs["octave"].append(
-            torch.full((quota,), s, dtype=torch.int32, device=dev))
-        outs["size"].append(torch.full(
-            (quota,), float(scales[s] * np.float32(S.PATCH_SIZE)),
-            dtype=torch.float32, device=dev))
-        outs["valid"].append(valid)
-        outs["x_level"].append(xs)
-        outs["y_level"].append(ys)
-
-    slots = {k: torch.cat(v) for k, v in outs.items()}
-    slots["count"] = slots["valid"].sum(dtype=torch.int32)
-    return slots, levels, per_level
+        parts.append(dict(_level_slots(s, scales[s], quota, ys, xs, r, ang,
+                                       valid), x_level=xs, y_level=ys))
+    return _join_slots(parts), levels, per_level
 
 
 def _hs_from_fused(desc_u8, valid, nbits: int) -> torch.Tensor:
@@ -243,36 +257,43 @@ def _hs_from_fused(desc_u8, valid, nbits: int) -> torch.Tensor:
 
 
 def _compute_descriptors(image, x, y, size, ang, valid, kind: str,
-                         nbits: int, scale: float,
-                         hs_fused: bool = False) -> torch.Tensor:
+                         nbits: int, scale: float, hs_fused: bool = False,
+                         origin=(0, 0), frame_hw=None) -> torch.Tensor:
     """Descriptor dispatch: BAD through K3; HashSIFT through the warp (K4)
     and the histogram (K5), or with `hs_fused` through the fused kernel
     (K11), then the projection.  Every keypoint size takes the same
-    kernels."""
+    kernels.  `origin`, `frame_hw`: the image is a band of a larger frame
+    (`ops/window_kernels.py`)."""
+    band = dict(origin=origin, frame_hw=frame_hw)
     if kind == "bad":
         return WK.bad_descriptors_windows(image, x, y, size, ang, valid,
-                                          nbits, scale)
+                                          nbits, scale, **band)
     if kind != "hash_sift":
         raise ValueError(f"kind must be 'bad' or 'hash_sift', got {kind!r}")
     if hs_fused:
-        rows = WK.hs_desc_windows(image, x, y, size, ang, valid, scale)
+        rows = WK.hs_desc_windows(image, x, y, size, ang, valid, scale,
+                                  **band)
     else:
         rows = WK.hs_hist_from_patches(
-            WK.warp_patches_windows(image, x, y, size, ang, valid, scale))
+            WK.warp_patches_windows(image, x, y, size, ang, valid, scale,
+                                    **band))
     return _hs_from_fused(rows, valid, nbits)
 
 
 def _compute_level_descriptors(blurred, ys, xs, ang, valid,
-                               cfg: FeatureConfig):
-    """Descriptors for one level's slots on the blurred level image, with
-    keypoints (x, y, size=31, angle) in level coordinates."""
+                               cfg: FeatureConfig, origin=(0, 0),
+                               frame_hw=None):
+    """Descriptors for one level's slots on the blurred level image (or on a
+    band of it: `origin`, `frame_hw`), with keypoints (x, y, size=31,
+    angle) in level coordinates."""
     x = xs.to(torch.float32)
     y = ys.to(torch.float32)
     size = torch.full(x.shape, float(S.PATCH_SIZE), dtype=torch.float32,
                       device=x.device)
     kind, bits = cfg.descriptor_type.rsplit("_", 1)
     return _compute_descriptors(blurred, x, y, size, ang, valid, kind,
-                                int(bits), 1.0, cfg.hs_fused)
+                                int(bits), 1.0, cfg.hs_fused, origin,
+                                frame_hw)
 
 
 def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,

@@ -107,23 +107,24 @@ __device__ __forceinline__ void stage_shifted(const uint8_t* img, int img_h,
   }
 }
 
-struct ShiftedFetch {   // pixel (vi, ui) at byte (vi - y0) * stride + ui - x0
+struct ShiftedFetch {   // pixel (r, c) at byte (r - y0) * stride + c - x0
   const uint8_t* win;
   int y0, x0;
 
-  __device__ __forceinline__ void operator()(int vi, int ui, float& p00,
-                                             float& p01, float& p10,
-                                             float& p11) const {
-    const uint8_t* p = win + (vi - y0) * kWinStride + (ui - x0);
-    p00 = p[0];
-    p01 = p[1];
-    p10 = p[kWinStride];
-    p11 = p[kWinStride + 1];
+  __device__ __forceinline__ void operator()(int r0, int r1, int c0, int c1,
+                                             float& p00, float& p01,
+                                             float& p10, float& p11) const {
+    const uint8_t* p = win + (r0 - y0) * kWinStride - x0;
+    const uint8_t* q = win + (r1 - y0) * kWinStride - x0;
+    p00 = p[c0];
+    p01 = p[c1];
+    p10 = q[c0];
+    p11 = q[c1];
   }
 };
 
 struct ConstFetch {
-  __device__ __forceinline__ void operator()(int, int, float& p00,
+  __device__ __forceinline__ void operator()(int, int, int, int, float& p00,
                                              float& p01, float& p10,
                                              float& p11) const {
     p00 = 10.0f;
@@ -153,7 +154,8 @@ block_direct(const uint8_t* __restrict__ img, int h, int w,
     s_affine = hs::keypoint_affine(kx[k], ky[k], trig.c, trig.sn);
   }
   __syncthreads();
-  row[t] = hs::sample_word(hs::GlobalFetch{img, w}, h, w, s_affine, 4 * t);
+  row[t] = hs::sample_word<false>(hs::GlobalFetch{img, w},
+                                  hs::whole_image(h, w), s_affine, 4 * t);
 }
 
 template <int kVariant>
@@ -186,15 +188,18 @@ warp_variant(const uint8_t* __restrict__ img, int h, int w,
     const ShiftedFetch fetch{s_win[warp], win.y0, win.x0};
 #pragma unroll 2
     for (int i = lane; i < kWords; i += 32)
-      words[i] = hs::sample_word(fetch, h, w, a, 4 * i);
+      words[i] = hs::sample_word<false>(fetch, hs::whole_image(h, w), a,
+                                        4 * i);
   } else if (kVariant == 3) {
 #pragma unroll 2
     for (int i = lane; i < kWords; i += 32)
-      words[i] = hs::sample_word(ConstFetch{}, h, w, a, 4 * i);
+      words[i] = hs::sample_word<false>(ConstFetch{}, hs::whole_image(h, w),
+                                        a, 4 * i);
   } else {
 #pragma unroll 2
     for (int i = lane; i < kWords; i += 32)
-      words[i] = hs::sample_word(hs::GlobalFetch{img, w}, h, w, a, 4 * i);
+      words[i] = hs::sample_word<false>(hs::GlobalFetch{img, w},
+                                        hs::whole_image(h, w), a, 4 * i);
   }
 }
 

@@ -129,7 +129,7 @@ def test_batch_rejects_bad_input(images):
             feat.detect_and_compute_batch(bad)
     with pytest.raises(ValueError, match="too small"):
         feat.detect_and_compute_batch(np.zeros((2, 10, 10), np.uint8))
-    with pytest.raises(NotImplementedError, match="mesh="):
+    with pytest.raises(TypeError, match="mesh must be"):
         feat.detect_and_compute_batch(images, mesh=object())
     with pytest.raises(ValueError, match="B >= 1"):
         TSH.detect_and_compute_batch(torch.zeros((0, 120, 160),

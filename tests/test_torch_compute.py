@@ -186,3 +186,18 @@ def test_descriptor_classes_need_cuda_or_cpu(monkeypatch):
     for cls in (TBAD, THS):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cls()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (1, 7), (7, 1)])
+def test_hash_sift_on_a_one_pixel_image_matches_jax(hw, fused):
+    """A 1x1 (and 1xN, Nx1) image: no sample's 2x2 support fits, and the
+    plain warp's 2-D index reads the image's only row or column as JAX's
+    does, where its flat gather once indexed out of range.  Two-stage and
+    fused give JAX's rows."""
+    img = np.full(hw, 100, np.uint8)
+    kp = np.array([[0, 0, 31, 0], [0.5, 0.25, 64, -1]], np.float32)
+    got = THS(device="cpu", fused=fused).compute(img, kp)
+    want = np.asarray(JHS().compute(img, kp))
+    assert got.shape == (2, 32)
+    np.testing.assert_array_equal(got, want)

@@ -6,8 +6,8 @@ y, octave, size, response, valid, count) bit-exact, because selection is
 exact integer math in both packages; angles within 1e-3 degrees (f32 atan2
 ULPs); descriptors within the reference's budgets of int(2e-5 * bytes) + 1
 (BAD) and int(1e-4 * bytes) + 1 (HashSIFT) differing bytes.  Also the API
-surface: the same ValueErrors as the JAX API, NotImplementedError for
-`mesh=` (not ported yet), and no silent CPU run when CUDA was asked for.
+surface: the same ValueErrors as the JAX API, TypeError for a `mesh=`
+that is not a mesh, and no silent CPU run when CUDA was asked for.
 """
 import numpy as np
 import pytest
@@ -194,14 +194,16 @@ def test_image_errors_match_jax():
 
 
 def test_unported_paths_raise(scene):
-    """mesh= still raises; mask= and every nonmax_radius (9 and 49 take the
+    """Every path is ported: mesh= takes a `parallel.sharding.Mesh` (the
+    mesh forms run in tests/test_torch_sharding.py) and raises TypeError
+    for anything else; mask= and every nonmax_radius (9 and 49 take the
     routes that had no kernel before) run, as do HashSIFT (the default) and
     standalone compute()."""
     tef = TEF(device="cpu")
     assert tef.get_descriptor_type() == "hash_sift_256"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tef.detect_and_compute(scene, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tef.detect(scene, mask=np.ones_like(scene), mesh=object())
     assert tef.detect(scene, mask=np.ones_like(scene)).count > 0
     assert not hasattr(TP, "require_ported")

@@ -112,9 +112,10 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for want in ('ops.image', 'ops.window_kernels', 'ops.matcher', "
-        "'ops.ransac', 'parallel.sharding', "
+        "'ops.ransac', 'parallel.sharding', 'parallel.launch', "
         "'samples.hpatches_description', 'samples.sample_image_sequence', "
-        "'tools.eval_matching', 'tools.profile_paths'):\n"
+        "'tools.eval_matching', 'tools.profile_paths', "
+        "'tools.dryrun_multichip'):\n"
         "    assert T.__name__ + '.' + want in names, want\n"
         "assert 'jaxlib' not in sys.modules\n"
         "print(sorted(T.__all__))\n")
