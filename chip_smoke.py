@@ -92,8 +92,21 @@ launch count set to 0 just before and read just after:
     calls (BAD-256, HashSIFT-256, fused, BAD-256 with the ROI) and a masked
     `detect`, each rank's result equal to the single-device call on the
     card, with each rank's launches and time per call.
+  - the selection's cost on the dense maps of (b), (c) and the 1-rank mesh
+    `detect_and_compute` (HashSIFT-256): the device ms of the sort
+    kernels, the ms and the host syncs per call;
+  - the dense tie fallback at 4K: `tie_image`'s pattern in the scene,
+    `detect_and_compute` BAD-256 at radius 15, slots equal to the plain path
+    and the CPU port, with its ms and host syncs per call;
+  - `tools.eval_matching` with device "cuda" on the five fixtures of
+    tests/data: keypoint counts and repeatability equal to the CPU port's,
+    matches and inlier rates printed beside the CPU port's and
+    tools/EVAL.json's.
 Every `detect` / `detect_and_compute` call builds its pyramid through K10:
-7 launches per call, checked in every path above.
+7 launches per call, checked in every path above.  `utils.profiler` on the
+card: `timeit_ms` within 20% of this script's `time_ms` on one 40000 x
+40000 K6 call, and a `trace` of K1 calls that lists K1's two kernels and
+the `annotate` range around them.
 At the samples' own size (720x1280, 3000 features) configurations (a)-(d)
 are held against the port on the CPU, as are the fused route and a 4-frame
 batch, and the sequence path on the card is held against the port on the
@@ -297,11 +310,19 @@ def traced_launches(listed: dict, names) -> dict:
             for n in names}
 
 
+# Kernels `profiled` launches after the profiler's warm-up step and before
+# the traced calls.  Late in this script, traces lost the records of their
+# first three or four kernels, however long after the start they ran (K6's
+# first call of two in the mesh listing; 1 or 2 of K1's 20 calls in the
+# profiler phase; a fresh process lost none): the lead-in takes that loss
+# in place of the calls.  Its kernel is `torch.cuda._sleep`'s, which `kernel_names` leaves
+# out.
+LEAD_IN = 16
+
+
 def profiled(fn, reps: int = 1, cpu: bool = True):
     """The torch.profiler record of `reps` calls of fn, after a warm-up step
-    of the profiler over one call: traces begun cold have lost the records
-    of their first kernels on the card (K6's first call of two in the mesh
-    listing, in most tries; one of K9's ten launches in `launch_ms`)."""
+    of the profiler over one call and a lead-in of LEAD_IN spin kernels."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         acts.append(torch.profiler.ProfilerActivity.CPU)
@@ -309,12 +330,17 @@ def profiled(fn, reps: int = 1, cpu: bool = True):
             activities=acts,
             schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
                                              repeat=1)) as prof:
-        for calls in (1, reps):
-            torch.cuda.synchronize()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
     return prof
 
 
@@ -330,7 +356,8 @@ def kernel_names(fn, want: dict | None = None) -> dict:
         for e in profiled(fn).key_averages():
             t = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
-            if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and t > 0
+                    and "spin_kernel" not in e.key):
                 # one name may head several groups (the grouping key holds
                 # more than the name): add them up
                 c, ms = out.get(e.key, (0, 0.0))
@@ -2000,6 +2027,39 @@ def main() -> int:
         mesh_time(f"knn2_match_sharded {N_KP} x {N_KP}",
                   lambda: SH.knn2_match_sharded(d1, v1, d2, v2, mesh),
                   lambda: TM.knn2_ratio_match_masked(d1, v1, d2, v2))
+
+        stamp("main path 8: the selection's cost on (b), (c) and the 1-rank "
+              "mesh")
+        # -- main path 8: the flat sort's device ms, the ms and the host
+        # syncs per call of the slice's three dense-map routes at 4K (JAX
+        # would take its chunked and capped branches at radius 5, the 8x8
+        # reduced one at radius 15)
+        ef5 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=5,
+                                descriptor_type="hash_sift_256",
+                                device="cuda")
+        ef15 = EfficientFeatures(nfeatures=NFEATURES,
+                                 descriptor_type="hash_sift_256",
+                                 device="cuda")
+        for label, fn, route in (
+                ("(b) radius 5", lambda: ef5.detect_and_compute_async(img),
+                 ["fast_harris_nms"]),
+                ("(c) radius 5 mask=roi",
+                 lambda: ef5.detect_and_compute_async(img, mask=roi),
+                 ["fast_harris", "radius_nms"]),
+                ("1-rank mesh dAC radius 15",
+                 lambda: ef15.detect_and_compute_async(img, mesh=mesh),
+                 ["fast_harris", "radius_nms"])):
+            _, counts = drive(
+                f"selection {label}", fn,
+                pyramid_kernels + ["ic_angles_windows"] + route + two_stage,
+                forbid=[k for k in detect_routes if k not in route])
+            syncs = host_syncs(fn)
+            ms = time_ms(fn)
+            sort_ms = sum(t for k, (_, t) in kernel_names(fn).items()
+                          if "Sort" in k)
+            print(f"selection {label}: launches {counts}; sort kernels "
+                  f"{sort_ms:.3f} ms/call (device), {ms:.3f} ms/call, host "
+                  f"syncs per call {syncs} [{hw}]")
     finally:
         dist.destroy_process_group()
         mesh_dir.cleanup()
@@ -2066,6 +2126,137 @@ def main() -> int:
                   f"bit-identical to the single-device call on the card; "
                   f"launches per call {used}; {ms:.3f} ms/call against "
                   f"{ms_single:.3f} ms/call without a mesh [{hw}]")
+
+    stamp("the dense tie fallback at 4K")
+    # -- tie_image's pattern in the 4K scene at (ty, tx), 8-aligned as in
+    # tie_image: its two tied corners share an 8x8 block of level 0, so the
+    # cells route selects that level through the dense fallback (plain
+    # torch NMS)
+    ty, tx = H // 32 * 16 + 8, W // 32 * 16 + 8
+    tie_scene = scene.copy()
+    tie_scene[ty:ty + 96, tx:tx + 160] = tie_image()
+    ef_tie = EfficientFeatures(nfeatures=NFEATURES, descriptor_type="bad_256",
+                               device="cuda")
+    D.select_topk_cells.fallbacks = 0
+    with no_integral():
+        (kps, desc), counts = drive(
+            "4K tie fallback", lambda: ef_tie.detect_and_compute_async(
+                tie_scene), detect_kernels + desc_kernels["bad"])
+    fallbacks = D.select_topk_cells.fallbacks
+    if fallbacks < 1:
+        fail("4K tie fallback: no level took the dense fallback")
+    with plain_kernels():
+        kps_p, desc_p = ef_tie.detect_and_compute_async(tie_scene)
+    kps_c, desc_c = EfficientFeatures(
+        nfeatures=NFEATURES, descriptor_type="bad_256",
+        device="cpu").detect_and_compute_async(tie_scene)
+    slots = kps._slots
+    differ = [k for k in selection + ("angle",)
+              if not torch.equal(slots[k], kps_p._slots[k])]
+    differ += [f"{k} (CPU)" for k in selection
+               if not torch.equal(slots[k].cpu(), kps_c._slots[k])]
+    dang = (slots["angle"].cpu() - kps_c._slots["angle"]).abs()
+    dang = float(torch.minimum(dang, 360 - dang).max())
+    ndiff = (int((desc != desc_p).sum()), int((desc.cpu() != desc_c).sum()))
+    budget = byte_budget("bad", desc.numel())
+    if differ or max(ndiff) > budget or dang >= ANGLE_TOL:
+        fail(f"4K tie fallback: slots {differ} differ from the plain path / "
+             f"the CPU port, descriptor bytes {ndiff} (budget {budget}), "
+             f"angles {dang}")
+    tie_dev = torch.from_numpy(tie_scene).to(dev)
+    tie_syncs = host_syncs(lambda: ef_tie.detect_and_compute_async(tie_dev))
+    tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(tie_dev))
+    no_tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(img))
+    print(f"4K tie fallback, BAD-256 radius 15: {kps.count} keypoints; "
+          f"dense fallbacks {fallbacks} of {ef_tie.get_n_levels()} levels; "
+          f"launches {counts}; slots bit-identical to the plain path and to "
+          f"the CPU port (angles max {dang:.2e} deg), descriptor bytes "
+          f"differing plain {ndiff[0]} / cpu {ndiff[1]} (budget {budget}); "
+          f"{tie_ms:.3f} ms/call, host syncs per call {tie_syncs}; the scene "
+          f"without the pattern {no_tie_ms:.3f} ms/call [{hw}]")
+    del tie_dev, kps_p, desc_p, kps_c, desc_c
+
+    stamp("the profiler on the card")
+    # -- utils/profiler: timeit_ms beside time_ms on one device-bound call,
+    # and a trace that holds K1's kernels and an annotate range
+    from efficient_features_tpu_torch.utils import profiler as PRF
+    d_k6 = torch.from_numpy(rng.integers(0, 256, (N_KP, 32),
+                                         dtype=np.uint8)).to(dev)
+    k6_call = lambda: TM.knn2_topk2(d_k6, None, d_k6, None)  # noqa: E731
+    prof_ms, event_ms = PRF.timeit_ms(k6_call, ITERS, 3), time_ms(k6_call)
+    if not abs(prof_ms / event_ms - 1.0) <= 0.2:
+        fail(f"profiler.timeit_ms {prof_ms:.4f} ms against time_ms "
+             f"{event_ms:.4f} ms on one K6 call")
+    range_name = "chip_smoke: K1 on the 4K scene"
+    k1_names = ("fast_harris_kernel", "nms_cells_kernel")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with PRF.trace(trace_dir):
+            with PRF.annotate(range_name):
+                for _ in range(20):
+                    DK.fast_harris_nms_cells(img, 20, 15)
+                torch.cuda.synchronize()
+        traced_file, = Path(trace_dir).glob("trace-*.json")
+        events = json.loads(traced_file.read_text())["traceEvents"]
+    traced = {n: sum(1 for e in events if e.get("cat") == "kernel"
+                     and n in e.get("name", "")) for n in k1_names}
+    ranges = sum(1 for e in events if e.get("name") == range_name)
+    if set(traced.values()) != {20} or not ranges:
+        fail(f"profiler.trace of 20 K1 calls: K1's kernels {traced}, "
+             f"annotate ranges {ranges}")
+    # the trace's lead-in: kernels that ran before the first of K1's
+    first_k1 = min(e["ts"] for e in events if e.get("cat") == "kernel"
+                   and any(n in e.get("name", "") for n in k1_names))
+    lead_in = sum(1 for e in events if e.get("cat") == "kernel"
+                  and e["ts"] < first_k1)
+    print(f"profiler: timeit_ms {prof_ms:.4f} ms against time_ms "
+          f"{event_ms:.4f} ms on one {N_KP} x {N_KP} K6 call (within 20%); "
+          f"trace of 20 K1 calls lists {traced} kernel launches and "
+          f"{ranges} events of its annotate range, after {lead_in} of the "
+          f"{PRF._LEAD_IN + 1} lead-in kernels [{hw}]")
+    del d_k6
+
+    stamp("eval_matching on the card")
+    # -- tools/eval_matching on the five fixtures of tests/data: keypoints and
+    # repeatability are the CPU port's (selection is exact); matches may
+    # move where descriptor bytes do, within the budgets
+    from efficient_features_tpu_torch.tools import eval_matching as EV
+    eval_rows, counts = drive(
+        "eval_matching", lambda: EV.evaluate_fixtures("cuda"),
+        detect_kernels + two_stage + desc_kernels["bad"] + ["knn2_topk2"],
+        detect_calls=8 * len(EV.FIXTURES))
+    eval_cpu = EV.evaluate_fixtures("cpu")
+    eval_ref = json.loads((REPO / "tools" / "EVAL.json").read_text())["rows"]
+    for key, c in eval_cpu.items():
+        g, r = eval_rows[key], eval_ref[key]
+        differ = [k for k in ("n_kp1", "n_kp2", "n_proj_in_bounds",
+                              "repeatability") if g[k] != c[k]]
+        if differ:
+            fail(f"eval_matching {key}: {differ} differ from the CPU port "
+                 f"(card {g}, CPU {c})")
+        kind = key.rsplit(".", 1)[1].rsplit("_", 1)[0]
+        budgets = [byte_budget(kind, g[k] * 32)      # 256-bit rows
+                   for k in ("n_kp1", "n_kp2")]
+        print(f"eval {key}: keypoints {g['n_kp1']} / {g['n_kp2']}, "
+              f"repeatability {g['repeatability']}, equal to the CPU port "
+              f"(tools/EVAL.json {r['repeatability']}); matches card "
+              f"{g['n_matches']}, CPU {c['n_matches']}, EVAL.json "
+              f"{r['n_matches']}; inlier rate card {g['inlier_rate']}, CPU "
+              f"{c['inlier_rate']}, EVAL.json {r['inlier_rate']} (descriptor "
+              f"budget {budgets[0]} / {budgets[1]} bytes a view: matches "
+              f"may differ only where descriptor bytes do)")
+
+    def eval_mean(rows, metric, sel):
+        return float(np.mean([v[metric] for k, v in rows.items() if sel in k]))
+
+    print("eval_matching means, card / CPU port / tools/EVAL.json: "
+          + "; ".join(
+              f"{metric} {sel.strip('.') or 'all'} " + " / ".join(
+                  f"{eval_mean(rows, metric, sel):.4f}"
+                  for rows in (eval_rows, eval_cpu, eval_ref))
+              for metric, sel in (("repeatability", "."),
+                                  ("inlier_rate", ".bad_256"),
+                                  ("inlier_rate", ".hash_sift_256")))
+          + f"; launches {counts} [{hw}]")
 
     stamp("720p against the CPU port")
     # -- the sequence path on the card vs the port on the CPU, 720x1280 ------

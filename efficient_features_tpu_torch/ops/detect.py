@@ -182,12 +182,16 @@ def _slots(vals, idx, w):
     return ys, xs, torch.where(valid, vals, torch.zeros_like(vals)), valid
 
 
-def select_topk(resp: torch.Tensor, survivor: torch.Tensor, quota: int):
+def select_topk(resp: torch.Tensor, survivor: torch.Tensor, quota: int,
+                nms_radius: int | None = None):
     """Top `quota` survivors by (response desc, flat index asc).
 
     Returns fixed-shape (quota,) ys, xs (int32), resp (f32; 0 where invalid)
-    and valid (bool).  This is the flat exact form of the JAX function; its
-    chunked and 8x8-reduced branches are exact speedups of it."""
+    and valid (bool): one stable sort of the whole map.  `nms_radius` is the
+    JAX function's argument, which there picks an 8x8-reduced or a chunked
+    two-stage branch; both are exact, so it does not change the selection
+    here.  Ported as such, the branches made every path measured on the
+    H100 slower end to end, and two of them need a host read."""
     h, w = resp.shape
     masked = torch.where(survivor, canonical_zero(resp), RESP_SENTINEL)
     vals, idx = topk_stable(masked.reshape(-1), min(quota, h * w))

@@ -3,7 +3,7 @@
 Port of `efficient_features_tpu/ops/orientation.py`: a gather over the
 circular 31x31 patch.  The integer moments are exact; the final atan2 is
 float32, whose last-ULP differences between backends the descriptor budgets
-absorb.  `ic_moments` and `angles_from_moments` after it are the plain
+absorb.  `ic_angles` is `angles_from_moments` after `ic_moments`, the plain
 version of the IC kernel (K2), which on a card writes the angle itself.
 """
 from __future__ import annotations
@@ -55,3 +55,13 @@ def angles_from_moments(moments: torch.Tensor,
     deg = _RAD2DEG * ang
     return torch.where(valid, deg, torch.zeros_like(deg))
 
+
+
+def ic_angles(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Angles in degrees [0, 360) for (quota,) keypoint slots, by the gather
+    above.  Invalid slots read from clamped indices and return 0; valid
+    detector keypoints lie >= 15 px from the borders, so the clamp never
+    binds for them.  (The IC kernel K2, `window_kernels.ic_angles_windows`,
+    computes the same on a card.)"""
+    return angles_from_moments(ic_moments(img, ys, xs), valid)

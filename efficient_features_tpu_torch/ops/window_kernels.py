@@ -75,9 +75,8 @@ ic_moments_windows.launches = 0
 
 
 def ic_angles_windows_ref(image, ys, xs, valid) -> torch.Tensor:
-    """Plain version of K2's angles: `orientation.angles_from_moments` of
-    `orientation.ic_moments`."""
-    return O.angles_from_moments(O.ic_moments(image, ys, xs), valid)
+    """Plain version of K2's angles: `orientation.ic_angles`."""
+    return O.ic_angles(image, ys, xs, valid)
 
 
 def ic_angles_windows(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,

@@ -357,7 +357,7 @@ def _band_candidates(ext: torch.Tensor, halo: int, bh: int, row0: int,
     """A band's top `quota` survivors of its owned rows, in `ext`'s
     coordinates: K8 on the halo-extended band, the level's border rows
     (global rows [15, hs - 15)) and the ROI rows before the NMS, as the
-    JAX band does (sharding.py:424-451), then K9 and the flat top-k."""
+    JAX band does (sharding.py:424-451), then K9 and `select_topk`."""
     e = ext.shape[0]
     resp = DK.fast_harris(ext, cfg.fast_threshold)
     rows = torch.arange(e, device=ext.device) - halo + row0
@@ -369,7 +369,8 @@ def _band_candidates(ext: torch.Tensor, halo: int, bh: int, row0: int,
     surv = DK.radius_nms(resp, cfg.nonmax_radius)
     owned = torch.zeros(e, dtype=torch.bool, device=ext.device)
     owned[halo:halo + bh] = True
-    return OD.select_topk(resp, surv & owned[:, None], quota)
+    return OD.select_topk(resp, surv & owned[:, None], quota,
+                          nms_radius=cfg.nonmax_radius)
 
 
 def _merge_topk(mesh: Mesh, k: int, quota: int, w: int, ys, xs, r, valid,

@@ -116,8 +116,8 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
     device):
       - radius >= 10: K1, cells, with the mask, then the cell-reduced
         selection (`efficient_features_tpu/pipeline.py:109`);
-      - radius < 10, no mask: K7, dense suppressed map, flat top-k;
-      - radius < 10 with a mask: K8, the mask, K9, flat top-k.
+      - radius < 10, no mask: K7, dense suppressed map, `select_topk`;
+      - radius < 10 with a mask: K8, the mask, K9, `select_topk`.
     """
     h, w = img.shape
     radius = cfg.nonmax_radius
@@ -129,7 +129,7 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
                 cm, crow, ccnt, h, w, quota,
                 lambda: _dense_selection(img, quota, cfg, lvl_mask))
         else:
-            if radius < 10 and lvl_mask is None:
+            if lvl_mask is None:
                 suppressed = DK.fast_harris_nms(img, cfg.fast_threshold,
                                                 radius)
             else:
@@ -140,7 +140,8 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
                 surv = DK.radius_nms(resp, radius)
                 suppressed = torch.where(surv, resp, ops_detect.RESP_SENTINEL)
             ys, xs, r, valid = ops_detect.select_topk(
-                suppressed, suppressed != ops_detect.RESP_SENTINEL, quota)
+                suppressed, suppressed != ops_detect.RESP_SENTINEL, quota,
+                nms_radius=radius)
         ang = WK.ic_angles_windows(img, ys, xs, valid)
         return ys, xs, r, ang, valid
     # a level too small for the 31 px patch selects nothing (its border mask

@@ -5,38 +5,20 @@
         [--device cuda|cpu]
     0: detect-and-compute   1: detect-only   2: compute-only
 
-One warm-up call, then --num-iterations calls; on a GPU the mean time per
-call comes from CUDA events around them, on the CPU from the host clock.
+One warm-up call, then --num-iterations calls (`utils.profiler.timeit_ms`);
+on a GPU the mean time per call comes from CUDA events around them, on the
+CPU from the host clock.
 """
 import argparse
-import time
 
 import torch
 
 from efficient_features_tpu_torch import EfficientFeatures
 from efficient_features_tpu_torch.samples.sample_common import (
     descriptor_type, load_gray)
+from efficient_features_tpu_torch.utils import profiler
 
 NAMES = ["detect-and-compute", "detect-only", "compute-only"]
-
-
-def mean_ms(fn, iters: int, device: torch.device) -> float:
-    """Mean ms per call of `fn` over `iters` calls after one warm-up."""
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main():
@@ -85,7 +67,7 @@ def main():
         # (sample_benchmark.cpp:125-133), kept on the device
         kps = feat.detect(img_t)
         fn = lambda: feat.compute_async(img_t, kps)  # noqa: E731
-    ms = mean_ms(fn, args.num_iterations, feat.device)
+    ms = profiler.timeit_ms(fn, iters=args.num_iterations, warmup=1)
 
     print(f"{feat.detect(img_t).count} keypoints found.")
     print(f"processing time: {ms:.1f}[milli sec]")

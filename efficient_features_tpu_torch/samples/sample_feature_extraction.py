@@ -9,16 +9,16 @@ paths; draws keypoints if cv2 is available.
         [--max-keypoints N] [--device cuda|cpu] [--out out.png]
 
 The sync and async times are host-clock times of the calls; on a GPU the
-async call's device time comes from CUDA events as well.
+async call's device time comes from CUDA events as well
+(`utils.profiler.timeit_ms`).
 """
 import argparse
 import time
 
-import torch
-
 from efficient_features_tpu_torch import EfficientFeatures
 from efficient_features_tpu_torch.samples.sample_common import (
     descriptor_type, load_gray)
+from efficient_features_tpu_torch.utils import profiler
 
 
 def main():
@@ -46,23 +46,23 @@ def main():
     kps, desc = feat.detect_and_compute(img)
     t_sync = time.perf_counter() - t0
 
-    # async path: the call returns once enqueued, block explicitly
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    # async path: the call returns once enqueued; timeit_ms waits for it
+    dispatch = []
+
+    def async_call():
+        t0 = time.perf_counter()
+        out = feat.detect_and_compute_async(img)
+        dispatch.append(time.perf_counter() - t0)
+        return out
+
     t0 = time.perf_counter()
-    kps2, desc2 = feat.detect_and_compute_async(img)
-    t_dispatch = time.perf_counter() - t0
-    if on_card:
-        end.record()
-    kps2.block()
+    call_ms = profiler.timeit_ms(async_call, iters=1, warmup=0)
     t_async = time.perf_counter() - t0
+    t_dispatch = dispatch[0]
 
     print(f"image {img.shape[1]}x{img.shape[0]}: {kps.count} keypoints, "
           f"descriptors {desc.shape}")
-    device = (f", device {start.elapsed_time(end):.1f} ms (CUDA events)"
-              if on_card else "")
+    device = f", device {call_ms:.1f} ms (CUDA events)" if on_card else ""
     print(f"sync {t_sync*1e3:.1f} ms | async dispatch {t_dispatch*1e3:.1f} ms,"
           f" total {t_async*1e3:.1f} ms{device}")
     h = kps.as_arrays()

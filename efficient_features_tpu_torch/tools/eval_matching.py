@@ -135,15 +135,9 @@ def evaluate_pair(img1: np.ndarray, H: np.ndarray, *, nfeatures=2000,
     }
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda",
-                    help="'cuda' (the kernels) or 'cpu' (plain versions)")
-    ap.add_argument("--nfeatures", type=int, default=2000)
-    ap.add_argument("--eps", type=float, default=3.0)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-
+def evaluate_fixtures(device="cuda", nfeatures=2000, eps=3.0) -> dict:
+    """{"<fixture>.<pair>.<descriptor type>": `evaluate_pair`'s metrics}
+    over the five fixtures, both view pairs and BAD-256 / HashSIFT-256."""
     from PIL import Image
 
     rows = {}
@@ -154,10 +148,22 @@ def main():
             for dt in ("bad_256", "hash_sift_256"):
                 key = f"{name}.{hname}.{dt}"
                 rows[key] = evaluate_pair(
-                    img1, H, nfeatures=args.nfeatures, descriptor_type=dt,
-                    eps=args.eps, threshold=FIXTURE_THRESHOLD.get(name, 20),
-                    device=args.device)
+                    img1, H, nfeatures=nfeatures, descriptor_type=dt,
+                    eps=eps, threshold=FIXTURE_THRESHOLD.get(name, 20),
+                    device=device)
                 print(key, rows[key], file=sys.stderr)
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the kernels) or 'cpu' (plain versions)")
+    ap.add_argument("--nfeatures", type=int, default=2000)
+    ap.add_argument("--eps", type=float, default=3.0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    rows = evaluate_fixtures(args.device, args.nfeatures, args.eps)
 
     def mean(metric, sel):
         vals = [v[metric] for k, v in rows.items() if sel in k]

@@ -46,20 +46,6 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, iters=ITERS, warmup=3) -> float:
-    """Mean ms per call of fn over back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def kernel_ms(fn, kernel: str) -> float:
     """Device ms per call of fn spent in kernels named `kernel`
     (torch.profiler)."""
@@ -91,6 +77,7 @@ def main() -> int:
     from efficient_features_tpu_torch import EfficientFeatures
     from efficient_features_tpu_torch.ops import window_kernels as WK
     from efficient_features_tpu_torch.samples import sample_common as SC
+    from efficient_features_tpu_torch.utils import profiler
     if Path(pkg.__file__).resolve().parents[1] != root:
         raise SystemExit(f"hs_probe: imported {pkg.__file__}, not {root}")
 
@@ -135,12 +122,10 @@ def main() -> int:
         torch.cuda.synchronize()
 
         def k5(patches=patches):
-            for p in patches:
-                WK.hs_hist_from_patches(p)
+            return [WK.hs_hist_from_patches(p) for p in patches]
 
         def k11(kp=kp):
-            for a in kp:
-                WK.hs_desc_windows(*a)
+            return [WK.hs_desc_windows(*a) for a in kp]
 
         res = {
             "launches": len(kp),
@@ -153,8 +138,8 @@ def main() -> int:
                 torch.cat(rows).cpu().numpy().tobytes()).hexdigest(),
             "k5_kernel_ms": kernel_ms(k5, "hs_hist_kernel"),
             "k11_kernel_ms": kernel_ms(k11, "hs_desc_kernel"),
-            "k5_wrapper_ms": event_ms(k5),
-            "k11_wrapper_ms": event_ms(k11)}
+            "k5_wrapper_ms": profiler.timeit_ms(k5, ITERS, 3),
+            "k11_wrapper_ms": profiler.timeit_ms(k11, ITERS, 3)}
         summary["cases"][name] = res
         print(f"{name}: {res['launches']} launches, {res['slots']} slots, "
               f"{res['empty_patches']} all-zero patches; K11 rows "

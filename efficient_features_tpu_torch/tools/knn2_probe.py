@@ -37,20 +37,6 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(ITERS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / ITERS
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -60,6 +46,7 @@ def main() -> int:
         return 1
     from efficient_features_tpu_torch import _build
     from efficient_features_tpu_torch.ops import matcher as TM
+    from efficient_features_tpu_torch.utils import profiler
 
     hw = card()
     dev = torch.device("cuda")
@@ -78,12 +65,14 @@ def main() -> int:
             _build.check(lib.eff_knn2_product_probe(
                 int8_form, N, N, nbits, split_len, sink.data_ptr(), stream),
                 "knn2_product_probe")
+            return sink
 
         d = torch.from_numpy(rng.integers(0, 256, (N, nbits // 8),
                                           dtype=np.uint8)).to(dev)
-        times = {"int8_product_only": time_ms(lambda: probe(1)),
-                 "b1_product_only": time_ms(lambda: probe(0)),
-                 "k6": time_ms(lambda: TM.knn2_topk2(d, None, d, None))}
+        times = {k: profiler.timeit_ms(fn, ITERS, 3) for k, fn in (
+            ("int8_product_only", lambda: probe(1)),
+            ("b1_product_only", lambda: probe(0)),
+            ("k6", lambda: TM.knn2_topk2(d, None, d, None)))}
         if int(sink) != 0:
             raise SystemExit("knn2_probe: the probe wrote its sink")
         summary["ms"][str(nbits)] = times

@@ -1,7 +1,7 @@
 """Where the device time goes on the port's main paths, on one CUDA card.
 
-    python -m efficient_features_tpu_torch.tools.profile_paths [--out FILE]
-        [--paths dac,dac_bad,...]
+    python efficient_features_tpu_torch/tools/profile_paths.py [--out FILE]
+        [--paths dac,dac_bad,...] [--root DIR]
 
 Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
 `dac_bad`:
@@ -19,9 +19,12 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
   - `masked`: the same call with `mask=` the ROI of
     `samples.sample_common.roi_mask` (K1 with its mask input);
   - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
-    K9, then the flat top-k sort of every level's dense map);
+    K9, then `select_topk` on every level's dense map);
   - `small_radius_nomask`: the `dac` call at nonmax_radius 5 without a mask
-    (K7, then the flat top-k sort);
+    (K7, then `select_topk`);
+  - `mesh_dac`: the `dac` call with `mesh=` a 1-rank NCCL group made in
+    this process (the band route: K10, K8, K9, then `select_topk` on each
+    band);
   - `large_radius`: the `dac` call at nonmax_radius 64 (K1, as at every
     radius >= 10);
   - `fused_hs`: the `dac` call with `hs_fused=True` (the pyramid through
@@ -43,11 +46,14 @@ end in a synchronize, no profiler), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
 share, 1 - device time / wall time, the device time of the sort kernels
 (top-k selection) and that of each of the port's own kernels (csrc/) by
-name, and the device time of each launch of K10 (`resize_kernel`, the
-pyramid's 7 levels, in launch order, averaged over the calls).  Prints the
-TOP kernels by device time and a JSON summary as the last line; `--out`
-also writes the summary to a file, `--paths` runs only the paths named.
-Exits non-zero without CUDA.
+name, the device time of each launch of K10 (`resize_kernel`, the
+pyramid's 7 levels, in launch order, averaged over the calls), and the
+host syncs of one call (torch's sync debug mode).  Prints the TOP kernels
+by device time and a JSON summary as the last line; `--out` also writes
+the summary to a file, `--paths` runs only the paths named.  `--root DIR`
+imports the package from DIR (default: the tree this file lies in), so
+that another tree (a parent unpacked with `git archive`) runs the same
+paths in the same call.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -57,7 +63,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -78,11 +86,10 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def port_kernel_names() -> frozenset:
+def port_kernel_names(csrc: Path) -> frozenset:
     """Names of the `__global__` functions in csrc/*.cu and *.cuh."""
     pattern = re.compile(
         r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
-    csrc = Path(__file__).resolve().parent.parent / "csrc"
     return frozenset(name for src in csrc.glob("*.cu*")
                      for name in pattern.findall(src.read_text()))
 
@@ -113,8 +120,22 @@ def launches_ms(events, name: str, calls: int) -> list[float] | None:
     return (us.reshape(calls, -1).mean(axis=0) / 1e3).tolist()
 
 
-def profile(fn) -> dict:
-    """Wall ms per call, device ms per call by kernel name, idle share."""
+def host_syncs(fn) -> int:
+    """Host syncs that one call of fn makes (torch's sync debug mode)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            return sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def profile(fn, ours: frozenset) -> dict:
+    """Wall ms per call, device ms per call by kernel name, idle share,
+    host syncs per call."""
     from torch.profiler import ProfilerActivity
     for _ in range(3):
         fn()
@@ -136,7 +157,6 @@ def profile(fn) -> dict:
         if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3 / CALLS
     device = sum(kernels.values())
-    ours = port_kernel_names()
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
@@ -145,7 +165,8 @@ def profile(fn) -> dict:
             "sort_ms": sum(v for k, v in ranked if "Sort" in k),
             "port_kernels_ms": {port_kernel(k, ours): v for k, v in ranked
                                 if port_kernel(k, ours)},
-            "resize_launches_ms": launches_ms(prof.events(), RESIZE, CALLS)}
+            "resize_launches_ms": launches_ms(prof.events(), RESIZE, CALLS),
+            "host_syncs": host_syncs(fn)}
 
 
 def main() -> int:
@@ -153,15 +174,23 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--paths", default=None,
                     help="comma-separated path names (default: all)")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
         return 1
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import efficient_features_tpu_torch as pkg
+    import torch.distributed as dist
     from efficient_features_tpu_torch import BAD, EfficientFeatures, HashSIFT
+    from efficient_features_tpu_torch.parallel import sharding as SH
     from efficient_features_tpu_torch.ops import window_kernels as WK
     from efficient_features_tpu_torch.samples import sample_common as SC
     from efficient_features_tpu_torch.samples import \
         sample_image_sequence as SIS
+    if Path(pkg.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"profile_paths: imported {pkg.__file__}, not {root}")
 
     hw = card()
     dev = torch.device("cuda")
@@ -209,7 +238,9 @@ def main() -> int:
              "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order)),
              "compute_hs": lambda: hs_256.compute_async(scene, kps),
-             "compute_bad": lambda: bad_256.compute_async(scene, kps)}
+             "compute_bad": lambda: bad_256.compute_async(scene, kps),
+             "mesh_dac": lambda: ef.detect_and_compute_async(scene,
+                                                             mesh=mesh)}
     k3 = WK.bad_descriptors_windows
     k3_calls = []
 
@@ -245,13 +276,20 @@ def main() -> int:
             ap.error(f"unknown paths {sorted(unknown)}; known: {list(paths)}")
         paths = {k: v for k, v in paths.items()
                  if k in args.paths.split(",")}
-    summary = {"card": hw, "calls": CALLS, "paths": {}}
+    if "mesh_dac" in paths:
+        store = tempfile.TemporaryDirectory()
+        dist.init_process_group("nccl", init_method=f"file://{store.name}/s",
+                                world_size=1, rank=0)
+        mesh = SH.make_mesh()
+    ours = port_kernel_names(root / "efficient_features_tpu_torch" / "csrc")
+    summary = {"card": hw, "root": str(root), "calls": CALLS, "paths": {}}
     for name, fn in paths.items():
-        res = profile(fn)
+        res = profile(fn, ours)
         summary["paths"][name] = res
         print(f"{name}: wall {res['wall_ms']:.3f} ms/call, device "
               f"{res['device_ms']:.3f} ms/call, idle share "
-              f"{res['idle_share']:.3f} [{hw}]")
+              f"{res['idle_share']:.3f}, host syncs {res['host_syncs']} "
+              f"[{hw}] ({root})")
         for k, v in res["kernels_ms"].items():
             print(f"  {v:9.3f} ms  {k}")
         print(f"  {res['other_ms']:9.3f} ms  the other "
@@ -265,6 +303,9 @@ def main() -> int:
         elif res["resize_launches_ms"]:
             print(f"  {RESIZE} by launch: " + " ".join(
                 f"{v:.4f}" for v in res["resize_launches_ms"]))
+    if "mesh_dac" in paths:
+        dist.destroy_process_group()
+        store.cleanup()
     line = json.dumps(summary)
     if args.out:
         with open(args.out, "w") as f:
