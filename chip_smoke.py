@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `efficient_features_tpu_torch/csrc` and
-checks each against its plain PyTorch version on the card: K1 cells (with
-and without its ROI mask input, radius 10-128, on the scene, the dense scene
-and 4K uniform noise, and an image whose corners all tie, so that each
-scans its whole disc), K7 dense FAST+Harris+NMS
+checks each against its plain PyTorch version on the card: K1 cells (its
+four outputs, the survivor bitmap among them, with and without its ROI mask
+input, radius 10-128, on the scene, the dense scene and 4K uniform noise,
+and an image whose corners all tie, so that each scans its whole disc),
+K12 Jacobi eigenvectors of 9x9 systems (bit for bit its plain version on
+random PSD matrices, DLT minimal sets and diagonal ties, and on the main
+path's own systems), K7 dense FAST+Harris+NMS
 and K8 dense FAST+Harris (radius 1-9, bit-exact; K7 also on the scene
 plus noise, on equal responses, where ties co-survive, and on an image
 smaller than one tile), K9 disc NMS
@@ -95,9 +98,12 @@ launch count set to 0 just before and read just after:
   - the selection's cost on the dense maps of (b), (c) and the 1-rank mesh
     `detect_and_compute` (HashSIFT-256): the device ms of the sort
     kernels, the ms and the host syncs per call;
-  - the dense tie fallback at 4K: `tie_image`'s pattern in the scene,
-    `detect_and_compute` BAD-256 at radius 15, slots equal to the plain path
-    and the CPU port, with its ms and host syncs per call;
+  - the tie scene at 4K: `tie_image`'s pattern in the scene, tied 8x8
+    blocks at level 0, `detect_and_compute` BAD-256 at radius 15, slots
+    equal to the plain path and the CPU port, with its ms per call;
+  - the async chain `detect_async` -> `compute_async` ->
+    `knn2_ratio_match_masked` -> `find_homography_ransac` at 4K under
+    `torch.cuda.set_sync_debug_mode("error")`;
   - `tools.eval_matching` with device "cuda" on the five fixtures of
     tests/data: keypoint counts and repeatability equal to the CPU port's,
     matches and inlier rates printed beside the CPU port's and
@@ -116,7 +122,8 @@ homography within SAMPLE_H_TOL on the same minimal sets.
 It checks that the HashSIFT projection ignores a caller's TF32 setting, and
 times the slices, compute, the sequence step, RANSAC and each kernel (a
 replay of one main-path call's launches) beside their plain versions with
-CUDA events; host syncs per call come from `torch.cuda.set_sync_debug_mode`.
+CUDA events; host syncs per call come from `torch.cuda.set_sync_debug_mode`,
+and any host sync of a path of the port fails the run.
 Exits non-zero without a result when CUDA is absent or any check fails.
 The second-to-last stdout line is a JSON object with one entry per kernel
 (time, bound, plain and library times); the last is the device summary.
@@ -174,6 +181,8 @@ SAMPLE_H_TOL = 1.0     # px
 PEAK_BYTES = 3.35e12
 PEAK_INT8_TC = 1979e12
 PEAK_F32 = 67e12
+# float64 ops/s outside the tensor cores (the same datasheet): K12's rate.
+PEAK_F64 = 34e12
 # Two rates the datasheet does not state, for K6's bound.
 # 1-bit tensor-core ops/s (wgmma .b1 and.popc): 8 x the int8 rate, the ratio
 # of the A100's datasheet (4992 to 624 TOP/s).  The product alone, 40000 x
@@ -189,6 +198,10 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 # the bytes of the histogram plan (ops/hash_sift.hist_plan) read per call.
 HS_PATCH_OPS = 40.0 * 900 + 2.0 * 5202 + 6.0 * 128
 HS_PLAN_BYTES = 16 * 6 * 4 + 2601 * 4
+# K12: float64 ops per 9x9 matrix, per pair and round 14 for the rotation,
+# 3 x 54 for the column, row and V updates and 4 for the 2x2 block, over 4
+# pairs, 9 rounds and JACOBI_SWEEPS (8) sweeps, and 8 compares for the pick.
+JACOBI_OPS = 8 * 9 * 4 * (14 + 3 * 54 + 4) + 8
 REPO = Path(__file__).resolve().parent
 
 
@@ -249,7 +262,7 @@ def tie_image() -> np.ndarray:
 def tie_mask() -> np.ndarray:
     """ROI of `tie_image` that cuts one of its two tied 8x8 blocks and
     leaves the other tied (tests/test_torch_cuda.py's tie mask): selection
-    still takes the dense fallback, which must apply the mask."""
+    must place the tied survivors of the masked map."""
     mask = np.full((96, 160), 255, np.uint8)
     mask[:, 66:] = 0
     return mask
@@ -401,29 +414,37 @@ def tied_responses(resp: torch.Tensor) -> torch.Tensor:
     return torch.where(finite, level, float("-inf"))
 
 
-def host_syncs(fn) -> int:
-    """Host syncs that one call of fn makes (torch's sync debug mode)."""
+def host_syncs(label: str, fn, check: bool = True) -> int:
+    """Host syncs that one call of fn makes (torch's sync debug mode); with
+    `check`, any sync fails the run: the port's paths read nothing back."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             fn()
-            return sum("synchroniz" in str(w.message) for w in caught)
+            syncs = [str(w.message) for w in caught
+                     if "synchroniz" in str(w.message)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    if check and syncs:
+        fail(f"{label}: {len(syncs)} host syncs in one call, the first: "
+             f"{syncs[0]}")
+    return len(syncs)
 
 
-def _work(name: str, args) -> tuple[float, float, float, float]:
+def _work(name: str, args) -> tuple[float, float, float, float, float]:
     """(bytes, CUDA-core ops at the float32 rate, int32 min/max, 1-bit
-    tensor-core ops) of one wrapper call: each input read once and each
-    output written once, and the work the function needs on these inputs.
+    tensor-core ops, float64 ops) of one wrapper call: each input read
+    once and each output written once, and the work the function needs on
+    these inputs.
     Op counts are per-element estimates of the algorithm's own arithmetic,
     each op counted once:
       K1  FAST-9 at every pixel: 16 differences, 32 threshold compares;
           per border-valid FAST corner of this image (inside the mask,
           where there is one) 2 x 147 for the Harris sums and one compare
           per pixel of the disc; with a mask, 1 B more read per pixel;
+          13 B written per cell (its four outputs);
       K7  as K1, dense: 1 B read and 4 B written per pixel;
       K8  FAST-9 at every pixel, 1 B read and 4 B written per pixel;
       K9  4 B read and 1 B of bool written per pixel, one compare per
@@ -455,7 +476,13 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
       K11 the image once, 17 B of keypoint per slot, the 128 B row and
           the plan once; per valid slot K4's affine and lerp per sample,
           and K5's work for each patch that is not all zero (an invalid
-          slot costs only its bytes)."""
+          slot costs only its bytes);
+      K12 the 324 B matrix read and the 36 B vector written, and
+          JACOBI_OPS float64 ops, per matrix;
+      K13 9 B read per cell and 13 B written per slot; per cell about 10
+          ops for its key, per kept block 64 for its bit transpose, per slot
+          24 for the binary search and the bit pick (the sorts between the
+          kernels are not counted)."""
     if name in ("fast_harris_nms_cells", "fast_harris_nms"):
         from efficient_features_tpu_torch.ops import detect_kernels as DK
         h, w = args[0].shape
@@ -466,50 +493,61 @@ def _work(name: str, args) -> tuple[float, float, float, float]:
         ops = 48.0 * h * w + int(corner.sum()) * (2.0 * 147
                                                   + _disc_pixels(args[2]))
         if name == "fast_harris_nms":
-            return 5 * h * w, ops, 0.0, 0.0
+            return 5 * h * w, ops, 0.0, 0.0, 0.0
         return (h * w * (2 if mask is not None else 1)
-                + 12 * -(-h // 8) * w, ops, 0.0, 0.0)
+                + 13 * -(-h // 8) * w, ops, 0.0, 0.0, 0.0)
     if name == "fast_harris":
         h, w = args[0].shape
-        return 5 * h * w, 48.0 * h * w, 0.0, 0.0
+        return 5 * h * w, 48.0 * h * w, 0.0, 0.0, 0.0
     if name == "radius_nms":
         from efficient_features_tpu_torch.ops import detect as D
         h, w = args[0].shape
         corners = int((args[0] != D.RESP_SENTINEL).sum())
         return (5 * h * w, 1.0 * h * w + corners * _disc_pixels(args[1]),
-                0.0, 0.0)
+                0.0, 0.0, 0.0)
     if name == "ic_angles_windows":
         img, ys, valid = args[0], args[1], args[3]
         n = ys.shape[0]
         return (img.numel() + 13 * n, 4.0 * 705 * int(valid.sum()), 0.0,
-                0.0)
+                0.0, 0.0)
     if name == "bad_descriptors_windows":
         img, n, nbits = args[0], args[1].shape[0], args[6]
         return (img.numel() + 17 * n + n * nbits // 8,
-                2.0 * img.numel() + 9.0 * nbits * n, 0.0, 0.0)
+                2.0 * img.numel() + 9.0 * nbits * n, 0.0, 0.0, 0.0)
     if name == "warp_patches_windows":
         img, n, valid = args[0], args[1].shape[0], int(args[5].sum())
-        return img.numel() + 1041 * n, 12.0 * 1024 * valid, 0.0, 0.0
+        return img.numel() + 1041 * n, 12.0 * 1024 * valid, 0.0, 0.0, 0.0
     if name == "hs_hist_from_patches":
         n = args[0].shape[0]
         live = n - empty_patches(args[0])
-        return 1152 * n + HS_PLAN_BYTES, HS_PATCH_OPS * live, 0.0, 0.0
+        return (1152 * n + HS_PLAN_BYTES, HS_PATCH_OPS * live, 0.0, 0.0,
+                0.0)
     if name == "resize_u8_kernel":
         src, (h, w) = args[:2]
-        return src.numel() + h * w + 4 * (h + w), 11.0 * h * w, 0.0, 0.0
+        return (src.numel() + h * w + 4 * (h + w), 11.0 * h * w, 0.0, 0.0,
+                0.0)
     if name == "hs_desc_windows":
         from efficient_features_tpu_torch.ops import window_kernels as WK
         img, n = args[0], args[1].shape[0]
         valid = int(args[5].sum())
         live = n - empty_patches(WK.warp_patches_windows_ref(*args))
         return (img.numel() + 17 * n + 128 * n + HS_PLAN_BYTES,
-                12.0 * 1024 * valid + HS_PATCH_OPS * live, 0.0, 0.0)
+                12.0 * 1024 * valid + HS_PATCH_OPS * live, 0.0, 0.0, 0.0)
     if name == "knn2_topk2":
         q, vq, t, vt = args
         n1, n2, nb = q.shape[0], t.shape[0], q.shape[1]
         masks = (n1 if vq is not None else 0) + (n2 if vt is not None else 0)
         return ((n1 + n2) * nb + masks + 12 * n1, 0.0, 1.0 * n1 * n2,
-                2.0 * n1 * n2 * 8 * nb)
+                2.0 * n1 * n2 * 8 * nb, 0.0)
+    if name == "select_cells":
+        cellmax, _, _, h, w, quota = args
+        q = min(quota, h * w)
+        kq = min(q, -(-h // 8) * -(-w // 8))
+        return (9.0 * cellmax.numel() + 13.0 * q,
+                10.0 * cellmax.numel() + 64.0 * kq + 24.0 * q, 0.0, 0.0, 0.0)
+    if name == "smallest_eigvec9":
+        n = args[0].numel() // 81
+        return 360.0 * n, 0.0, 0.0, 0.0, float(JACOBI_OPS) * n
     raise KeyError(name)
 
 
@@ -547,7 +585,7 @@ def bound(name: str, calls) -> tuple[float, str]:
     two, not their sum)."""
     work = np.sum([_work(name, args) for args, _ in calls], axis=0)
     t_bytes, *t_ops = work / (PEAK_BYTES, PEAK_F32, PEAK_INT32,
-                              PEAK_B1_TC) * 1e3
+                              PEAK_B1_TC, PEAK_F64) * 1e3
     t_ops = max(t_ops)
     return (float(max(t_bytes, t_ops)),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -587,6 +625,7 @@ MESH_WRAPPERS = (("ops.image", "resize_u8_kernel"),
                  ("ops.detect_kernels", "radius_nms"),
                  ("ops.detect_kernels", "fast_harris_nms_cells"),
                  ("ops.detect_kernels", "fast_harris_nms"),
+                 ("ops.detect_kernels", "select_cells"),
                  ("ops.window_kernels", "ic_angles_windows"),
                  ("ops.window_kernels", "bad_descriptors_windows"),
                  ("ops.window_kernels", "warp_patches_windows"),
@@ -678,11 +717,19 @@ def main() -> int:
         (WK, "hs_desc_windows", WK.hs_desc_windows_ref, "hs_desc.cu",
          f"{tpu}window_kernels.py:1358 (_hs_fused_kernel, launched by "
          f"_hs_desc_windows_impl {tpu}window_kernels.py:1565)"),
+        (DK, "select_cells", D.select_topk_cells, "select_cells.cu",
+         f"no TPU kernel: {tpu}detect.py:279 select_topk_cells is XLA ops "
+         "and settles a tie with lax.cond (:327); K13 stands for the port's "
+         "torch form of it, ops/detect.select_topk_cells"),
+        (RS, "smallest_eigvec9", RS.smallest_eigvec9_ref, "jacobi_eigh9.cu",
+         f"no TPU kernel: {tpu}ransac.py:71 solves with jnp.linalg.eigh (an "
+         "XLA op); K12 stands for torch.linalg.eigh, which reads its status "
+         "back to the host"),
     ]
     names = [n for _, n, *_ in kernels]
     pyramid_kernels = ["resize_u8_kernel"]     # every detect call: 7 launches
     detect_kernels = pyramid_kernels + ["fast_harris_nms_cells",
-                                        "ic_angles_windows"]
+                                        "select_cells", "ic_angles_windows"]
     desc_kernels = {"bad": ["bad_descriptors_windows"],
                     "hash_sift": ["warp_patches_windows",
                                   "hs_hist_from_patches"]}
@@ -787,9 +834,14 @@ def main() -> int:
     def check_cells(label, image, radius=15, mask=None):
         got = DK.fast_harris_nms_cells(image, 20, radius, mask)
         ref = DK.fast_harris_nms_cells_ref(image, 20, radius, mask)
-        for what, a, b in zip(("cellmax", "cellrow", "cellcnt"), got, ref):
+        for what, a, b in zip(("cellmax", "cellrow", "cellcnt", "cellbits"),
+                              got, ref):
             check_same(f"K1 {label} radius {radius} {what}",
                        "fast_harris_nms_cells", a, b)
+        pop = sum((got[3] >> k) & 1 for k in range(8)).to(torch.int32)
+        if not torch.equal(pop, got[2]):
+            fail(f"K1 {label} radius {radius}: cellcnt is not the popcount "
+                 "of cellbits")
         return got
 
     def check_cells_verbose(label, image, radius=15):
@@ -805,21 +857,21 @@ def main() -> int:
     tie_cnt = check_cells_verbose("tie", tie)[2]          # (12, 160)
     if int(tie_cnt.reshape(tie_cnt.shape[0], -1, 8).sum(dim=2).max()) < 2:
         fail("K1 tie image: no 8x8 block with tied co-survivors")
-    # the tied block sends selection down the dense fallback on the card
-    D.select_topk_cells.fallbacks = 0
+    # the tied block's survivors all come from K1's bitmap on the card
     tie_kps = [EfficientFeatures(nfeatures=64, nlevels=1,
                                  descriptor_type="bad_256",
                                  device=d).detect(tie_image())._slots
                for d in ("cuda", "cpu")]
-    if D.select_topk_cells.fallbacks != 2 or not all(
+    if int(tie_kps[0]["count"]) != int(tie_cnt.sum()) or not all(
             torch.equal(tie_kps[0][k].cpu(), tie_kps[1][k])
             for k in tie_kps[1] if k != "angle") or float(
                 (tie_kps[0]["angle"].cpu() - tie_kps[1]["angle"]).abs().max()
             ) >= ANGLE_TOL:
-        fail("tie image: the dense fallback on the card differs from the "
-             f"CPU ({D.select_topk_cells.fallbacks} fallbacks)")
-    print(f"tie image detect: dense fallback taken, {int(tie_kps[0]['count'])}"
-          " keypoints, slots bit-identical to the CPU port")
+        fail("tie image: the selection on the card differs from the CPU or "
+             f"drops a survivor ({int(tie_kps[0]['count'])} keypoints of "
+             f"{int(tie_cnt.sum())} survivors)")
+    print(f"tie image detect: all {int(tie_kps[0]['count'])} survivors "
+          "selected, the tied ones too; slots bit-identical to the CPU port")
     wrap = torch.from_numpy(wrap_image()).to(dev)
     check_cells_verbose("wrap", wrap)
     # radius 1 suppresses nothing, so the wrap-run corner itself must show
@@ -1023,23 +1075,56 @@ def main() -> int:
               f"a random and an all-255 mask (survivors {cnt}; unmasked "
               f"{int(unmasked[2].sum())}, equal to all-255)")
 
-    # the tie image under a mask that cuts one tied block: the masked dense
-    # fallback runs on the card
-    D.select_topk_cells.fallbacks = 0
+    # the tie image under a mask that cuts one tied block and leaves the
+    # other tied: the masked bitmap on the card
     tie_kps = [EfficientFeatures(nfeatures=64, nlevels=1,
                                  descriptor_type="bad_256", device=d).detect(
                                      tie_image(), mask=tie_mask())._slots
                for d in ("cuda", "cpu")]
-    if D.select_topk_cells.fallbacks != 2 or int(tie_kps[1]["count"]) != 3 \
+    if int(tie_kps[1]["count"]) != 3 \
             or not all(torch.equal(tie_kps[0][k].cpu(), tie_kps[1][k])
                        for k in tie_kps[1] if k != "angle") or float(
                 (tie_kps[0]["angle"].cpu() - tie_kps[1]["angle"]).abs().max()
             ) >= ANGLE_TOL:
-        fail("masked tie image: the dense fallback on the card differs from "
-             f"the CPU ({D.select_topk_cells.fallbacks} fallbacks)")
-    print("masked tie image detect: dense fallback taken with the mask, "
+        fail("masked tie image: the selection on the card differs from the "
+             "CPU")
+    print("masked tie image detect: "
           f"{int(tie_kps[0]['count'])} keypoints (3 expected), slots "
           "bit-identical to the CPU port")
+
+    stamp("K13 against plain")
+    # -- K13: the cells route's selection, bit for bit its plain version ----
+    tie_np = tie_image()
+    k13_cases = [("4K scene", sparse, None, (1, 8687, 100000)),
+                 ("4K dense scene", img, None, (8687, 40000)),
+                 ("4K dense scene, ROI", img, roi != 0, (8687,)),
+                 ("4K equal responses", torch.from_numpy(
+                     equal_image(H, W)).to(dev), None, (1000, 40000)),
+                 ("odd 1083x1917 crop", img[:1083, :1917].contiguous(), None,
+                  (3000,)),
+                 ("tie", torch.from_numpy(tie_np).to(dev), None, (1, 2, 64)),
+                 ("tie 1x4", torch.from_numpy(np.tile(tie_np, (1, 4))).to(
+                     dev), None, (1, 3, 5, 7, 100)),
+                 ("tie 3x3", torch.from_numpy(np.tile(tie_np, (3, 3))).to(
+                     dev), None, (1, 3, 5, 7, 100))]
+    for label, image, mask, quotas in k13_cases:
+        cm_, cr_, cc_, cb_ = DK.fast_harris_nms_cells(image, 20, 15, mask)
+        h_, w_ = image.shape
+        for quota in quotas:
+            before = DK.select_cells.launches
+            got = DK.select_cells(cm_, cr_, cb_, h_, w_, quota)
+            if DK.select_cells.launches != before + 1:
+                fail(f"K13 {label} quota {quota}: not one launch")
+            for what, a, b in zip(("ys", "xs", "resp", "valid"), got,
+                                  D.select_topk_cells(cm_, cr_, cb_, h_, w_,
+                                                      quota)):
+                check_same(f"K13 {label} quota {quota} {what}",
+                           "select_cells", a, b)
+        blocks = cc_.reshape(cc_.shape[0], -1, 8).sum(dim=2) \
+            if w_ % 8 == 0 else cc_
+        print(f"K13 {label} {h_}x{w_}, quotas {quotas}: bit-identical to "
+              f"its plain version ({int(cc_.sum())} survivors, "
+              f"{int((blocks > 1).sum())} tied blocks)")
 
     stamp("K2, K3, K4, K5, K11 against plain")
     # -- K2: IC moments exact, angles bit for bit ---------------------------
@@ -1512,6 +1597,56 @@ def main() -> int:
               f"bit-identical; one call launches {k6_launches}; split "
               f"{TM.knn2_plan(N_KP, N_KP)[0]} train rows a block")
 
+    stamp("K12 against plain")
+    # -- K12: Jacobi eigenvectors of 9x9 systems, bit for bit its twin ------
+    def dlt_systems(n, seed):
+        """Normal matrices of the DLT of n exact 4-point sets (rank 8), as
+        RANSAC's minimal sets give them."""
+        g = np.random.default_rng(seed)
+        hs = g.standard_normal((n, 3, 3))
+        src = g.uniform(-1, 1, (n, 4, 2))
+        ph = np.concatenate([src, np.ones((n, 4, 1))], -1) \
+            @ hs.transpose(0, 2, 1)
+        dst = ph[..., :2] / ph[..., 2:]
+        x, y, u, v = src[..., 0], src[..., 1], dst[..., 0], dst[..., 1]
+        z, o = np.zeros_like(x), np.ones_like(x)
+        a = np.concatenate(
+            [np.stack([x, y, o, z, z, z, -u * x, -u * y, -u], -1),
+             np.stack([z, z, z, x, y, o, -v * x, -v * y, -v], -1)], axis=1)
+        return (a.transpose(0, 2, 1) @ a).astype(np.float32)
+
+    m12 = np.random.default_rng(9).standard_normal((513, 9, 12))
+    edge12 = torch.from_numpy(np.stack(
+        [np.zeros((9, 9)), np.eye(9), 2 * np.eye(9),
+         np.diag([3.0, 1, 1, 2, 1, 5, 1, 1, 4])]).astype(np.float32)).to(dev)
+    for label, ata in (("random PSD, 513", m12 @ m12.transpose(0, 2, 1)),
+                       ("DLT minimal sets, 257", dlt_systems(257, 12)),
+                       ("DLT minimal sets, 1", dlt_systems(1, 13)[0]),
+                       ("zero, identity, ties on the diagonal", edge12)):
+        if ata is not edge12:
+            ata = torch.from_numpy(np.asarray(ata, np.float32)).to(dev)
+        before = RS.smallest_eigvec9.launches
+        got = RS.smallest_eigvec9(ata)
+        if RS.smallest_eigvec9.launches != before + 1:
+            fail(f"K12 {label}: not one launch")
+        check_same(f"K12 {label}", "smallest_eigvec9", got,
+                   RS.smallest_eigvec9_ref(ata))
+        if ata is edge12:   # repeated eigenvalues: the first smallest pick
+            want = torch.eye(9, dtype=torch.float64, device=dev)[[0, 0, 0, 1]]
+        else:
+            want = torch.linalg.eigh(ata.double())[1][..., 0]
+        off = float(torch.minimum((got.double() - want).abs().amax(-1),
+                                  (got.double() + want).abs().amax(-1)).max())
+        if not off < 1e-5:
+            fail(f"K12 {label}: {off} from torch.linalg.eigh's eigenvector")
+        print(f"K12 {label}: bit-identical to its plain version, within "
+              f"{off:.2e} of torch.linalg.eigh in float64 (up to sign)")
+    ata12 = torch.from_numpy(dlt_systems(257, 14)).to(dev)
+    k12_ms = launch_ms(lambda: RS.smallest_eigvec9(ata12), "jacobi9_kernel")
+    print(f"time K12 kernel-only, 257 systems: {sum(k12_ms):.4f} ms, bound "
+          f"{bound('smallest_eigvec9', [((ata12,), {})])[0]:.5f} ms by "
+          f"operations [{hw}]")
+
     stamp("main path 1: detect_and_compute")
     # -- main path 1: detect_and_compute through the kernels ----------------
     selection = ("x", "y", "octave", "size", "response", "valid", "count")
@@ -1520,13 +1655,11 @@ def main() -> int:
         kind = dtype.rsplit("_", 1)[0]
         ef = EfficientFeatures(nfeatures=NFEATURES, descriptor_type=dtype,
                                device="cuda")
-        D.select_topk_cells.fallbacks = 0
         with no_integral():
             (kps, desc), counts = drive(
                 f"detect_and_compute {dtype}",
                 lambda: ef.detect_and_compute_async(scene),
                 detect_kernels + desc_kernels[kind])
-        fallbacks = D.select_topk_cells.fallbacks
         n = kps.count
         slots = kps._slots
         if not (0 < n <= NFEATURES) or desc.shape != (kps.capacity,
@@ -1557,8 +1690,7 @@ def main() -> int:
             fail(f"{dtype}: descriptor bytes differ plain {ndiff_p} / cpu "
                  f"{ndiff_c} (budget {budget}), angle {dang}")
         print(f"slice {dtype}: {n} keypoints of {kps.capacity} slots; "
-              f"launches {counts}; dense tie fallbacks {fallbacks} of "
-              f"{ef.get_n_levels()} levels; slots bit-identical to the plain "
+              f"launches {counts}; slots bit-identical to the plain "
               f"path on the card and to the CPU port (angles max "
               f"{dang:.2e} deg); descriptor bytes differing: plain "
               f"{ndiff_p}, cpu {ndiff_c} (budget {budget})")
@@ -1592,7 +1724,8 @@ def main() -> int:
                   "shared memory, so K3's own integral passes return at "
                   f"once; kernels (launches, ms) {listed}")
 
-        syncs = host_syncs(lambda: ef.detect_and_compute_async(img))
+        syncs = host_syncs(f"slice {dtype}",
+                           lambda: ef.detect_and_compute_async(img))
         slice_ms = time_ms(lambda: ef.detect_and_compute_async(img))
         with plain_kernels():
             plain_slice = time_ms(lambda: ef.detect_and_compute_async(img))
@@ -1667,7 +1800,8 @@ def main() -> int:
         ef._cfg, (H, W), homography=True, ransac_iters=256,
         ransac_thresh=RANSAC_THRESH, device="cuda")
     seq, counts = drive("image sequence",
-                        lambda: [step(f) for f in frames_dev], match_kernels,
+                        lambda: [step(f) for f in frames_dev],
+                        match_kernels + ["smallest_eigvec9"],
                         detect_calls=SEQ_FRAMES)
     for i in range(1, SEQ_FRAMES):
         count, n_match, Hm, n_inl = seq[i]
@@ -1675,7 +1809,7 @@ def main() -> int:
                              Hm.cpu().numpy(),
                              warps[i] @ np.linalg.inv(warps[i - 1]))
         print(f"sequence frame {i}: {int(count)} keypoints, {got}")
-    seq_syncs = host_syncs(lambda: step(frames_dev[1]))
+    seq_syncs = host_syncs("sequence step", lambda: step(frames_dev[1]))
     seq_ms = time_ms(lambda: step(frames_dev[1]), iters=10)
     print(f"sequence path {H}x{W}, HashSIFT-256, {NFEATURES} features, "
           f"RANSAC 256 iterations: launches {counts}; "
@@ -1692,8 +1826,9 @@ def main() -> int:
         return (valid,) + RS.find_homography_ransac(
             src, dst, valid, iters=512, thresh=RANSAC_THRESH, device="cuda")
 
-    (valid, Hm, inl, n_inl), counts = drive("two-image matching", two_image,
-                                            match_kernels, detect_calls=2)
+    (valid, Hm, inl, n_inl), counts = drive(
+        "two-image matching", two_image, match_kernels + ["smallest_eigvec9"],
+        detect_calls=2)
     got = check_geometry("two-image", int(valid.sum()), int(n_inl),
                          Hm.cpu().numpy(), warps[1] @ np.linalg.inv(warps[0]))
     if bool((inl & ~valid).any()):
@@ -1703,12 +1838,12 @@ def main() -> int:
     stamp("main path 5: detector configurations")
     # -- main path 5: the detector's configurations, ROI mask and radius ----
     # (tag, nonmax_radius, with the ROI, the detect kernels of its route)
-    configs = [("a", 15, True, ["fast_harris_nms_cells"]),
+    configs = [("a", 15, True, ["fast_harris_nms_cells", "select_cells"]),
                ("b", 5, False, ["fast_harris_nms"]),
                ("c", 5, True, ["fast_harris", "radius_nms"]),
-               ("d", 64, False, ["fast_harris_nms_cells"])]
-    detect_routes = ("fast_harris_nms_cells", "fast_harris_nms",
-                     "fast_harris", "radius_nms")
+               ("d", 64, False, ["fast_harris_nms_cells", "select_cells"])]
+    detect_routes = ("fast_harris_nms_cells", "select_cells",
+                     "fast_harris_nms", "fast_harris", "radius_nms")
     config_calls = {}
     for dtype in ("hash_sift_256", "bad_256"):
         kind = dtype.rsplit("_", 1)[0]
@@ -1761,7 +1896,7 @@ def main() -> int:
                 if not all(torch.equal(det[k], slots[k]) for k in selection):
                     fail(f"{label}: detect() differs from detect_and_compute")
             syncs = host_syncs(
-                lambda: ef.detect_and_compute_async(img, mask=m_dev))
+                label, lambda: ef.detect_and_compute_async(img, mask=m_dev))
             ms = time_ms(lambda: ef.detect_and_compute_async(img, mask=m_dev))
             print(f"{label}: {n} keypoints{inside}; launches {counts}; slots "
                   f"bit-identical to the plain path, {ndiff} descriptor "
@@ -1859,21 +1994,25 @@ def main() -> int:
             ("two-stage", ef_hs)]
     for what, feat in runs:
         ms = time_ms(lambda: feat.detect_and_compute_async(img))
-        syncs = host_syncs(lambda: feat.detect_and_compute_async(img))
+        syncs = host_syncs(f"{what} slice",
+                           lambda: feat.detect_and_compute_async(img))
         print(f"time slice hash_sift_256 {what} {H}x{W} nfeatures "
               f"{NFEATURES}: {ms:.3f} ms/call, host syncs per call {syncs} "
               f"[{hw}]")
     pyr_ms = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
-    pyr_syncs = host_syncs(lambda: I.build_pyramid(img, 1.2, 8))
+    pyr_syncs = host_syncs("pyramid", lambda: I.build_pyramid(img, 1.2, 8))
     with plain_kernels():
         pyr_plain = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
-        pyr_plain_syncs = host_syncs(lambda: I.build_pyramid(img, 1.2, 8))
+        pyr_plain_syncs = host_syncs(
+            "plain pyramid", lambda: I.build_pyramid(img, 1.2, 8),
+            check=False)
     print(f"time pyramid {H}x{W}, 8 levels: {pyr_ms:.3f} ms/call through "
           f"K10 ({pyr_syncs} host syncs), {pyr_plain:.3f} ms/call through "
           f"the plain resize ({pyr_plain_syncs} host syncs) [{hw}]")
     batch_ms = time_ms(lambda: ef_hs.detect_and_compute_batch(batch), iters=10)
     single_ms = time_ms(lambda: ef_hs.detect_and_compute_async(batch[1]))
-    batch_syncs = host_syncs(lambda: ef_hs.detect_and_compute_batch(batch))
+    batch_syncs = host_syncs("batch",
+                             lambda: ef_hs.detect_and_compute_batch(batch))
     print(f"time batch of {nb} frames: {batch_ms:.3f} ms/call, "
           f"{batch_ms / nb:.3f} ms/frame, against {single_ms:.3f} ms for a "
           f"single call on one of them; host syncs per batch call "
@@ -1892,7 +2031,8 @@ def main() -> int:
     from efficient_features_tpu_torch.parallel import sharding as SH
     band_kernels = pyramid_kernels + ["fast_harris", "radius_nms",
                                       "ic_angles_windows"]
-    cell_kernels = ["fast_harris_nms_cells", "fast_harris_nms"]
+    cell_kernels = ["fast_harris_nms_cells", "select_cells",
+                    "fast_harris_nms"]
     band_names = ("resize_kernel", "fast_harris_kernel", "radius_nms_scan",
                   "ic_kernel")
     mesh_dir = tempfile.TemporaryDirectory()
@@ -2053,7 +2193,7 @@ def main() -> int:
                 f"selection {label}", fn,
                 pyramid_kernels + ["ic_angles_windows"] + route + two_stage,
                 forbid=[k for k in detect_routes if k not in route])
-            syncs = host_syncs(fn)
+            syncs = host_syncs(f"selection {label}", fn)
             ms = time_ms(fn)
             sort_ms = sum(t for k, (_, t) in kernel_names(fn).items()
                           if "Sort" in k)
@@ -2127,24 +2267,26 @@ def main() -> int:
                   f"launches per call {used}; {ms:.3f} ms/call against "
                   f"{ms_single:.3f} ms/call without a mesh [{hw}]")
 
-    stamp("the dense tie fallback at 4K")
+    stamp("the tie scene at 4K")
     # -- tie_image's pattern in the 4K scene at (ty, tx), 8-aligned as in
-    # tie_image: its two tied corners share an 8x8 block of level 0, so the
-    # cells route selects that level through the dense fallback (plain
-    # torch NMS)
+    # tie_image: its two tied corners share an 8x8 block of level 0, whose
+    # survivors selection places from K1's bitmap (where the JAX package
+    # takes its dense fallback)
     ty, tx = H // 32 * 16 + 8, W // 32 * 16 + 8
     tie_scene = scene.copy()
     tie_scene[ty:ty + 96, tx:tx + 160] = tie_image()
+    tie_dev = torch.from_numpy(tie_scene).to(dev)
+    tie_cnt = DK.fast_harris_nms_cells(tie_dev, 20, 15)[2]
+    tied = int((tie_cnt.reshape(tie_cnt.shape[0], -1, 8).sum(dim=2) > 1)
+               .sum())
+    if tied < 1:
+        fail("4K tie scene: no 8x8 block of level 0 holds tied survivors")
     ef_tie = EfficientFeatures(nfeatures=NFEATURES, descriptor_type="bad_256",
                                device="cuda")
-    D.select_topk_cells.fallbacks = 0
     with no_integral():
         (kps, desc), counts = drive(
-            "4K tie fallback", lambda: ef_tie.detect_and_compute_async(
+            "4K tie scene", lambda: ef_tie.detect_and_compute_async(
                 tie_scene), detect_kernels + desc_kernels["bad"])
-    fallbacks = D.select_topk_cells.fallbacks
-    if fallbacks < 1:
-        fail("4K tie fallback: no level took the dense fallback")
     with plain_kernels():
         kps_p, desc_p = ef_tie.detect_and_compute_async(tie_scene)
     kps_c, desc_c = EfficientFeatures(
@@ -2160,15 +2302,15 @@ def main() -> int:
     ndiff = (int((desc != desc_p).sum()), int((desc.cpu() != desc_c).sum()))
     budget = byte_budget("bad", desc.numel())
     if differ or max(ndiff) > budget or dang >= ANGLE_TOL:
-        fail(f"4K tie fallback: slots {differ} differ from the plain path / "
+        fail(f"4K tie scene: slots {differ} differ from the plain path / "
              f"the CPU port, descriptor bytes {ndiff} (budget {budget}), "
              f"angles {dang}")
-    tie_dev = torch.from_numpy(tie_scene).to(dev)
-    tie_syncs = host_syncs(lambda: ef_tie.detect_and_compute_async(tie_dev))
+    tie_syncs = host_syncs("4K tie scene",
+                           lambda: ef_tie.detect_and_compute_async(tie_dev))
     tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(tie_dev))
     no_tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(img))
-    print(f"4K tie fallback, BAD-256 radius 15: {kps.count} keypoints; "
-          f"dense fallbacks {fallbacks} of {ef_tie.get_n_levels()} levels; "
+    print(f"4K tie scene, BAD-256 radius 15: {kps.count} keypoints; "
+          f"{tied} tied 8x8 blocks at level 0; "
           f"launches {counts}; slots bit-identical to the plain path and to "
           f"the CPU port (angles max {dang:.2e} deg), descriptor bytes "
           f"differing plain {ndiff[0]} / cpu {ndiff[1]} (budget {budget}); "
@@ -2399,13 +2541,72 @@ def main() -> int:
     xy1 = torch.stack([slots1["x"], slots1["y"]], dim=1)
     xy2 = torch.stack([slots2["x"], slots2["y"]], dim=1)[j.long()]
     for iters in (256, 512):
-        r_ms = time_ms(lambda: RS.find_homography_ransac(
-            xy1, xy2, ok, iters=iters, thresh=RANSAC_THRESH, device="cuda"))
-        r_syncs = host_syncs(lambda: RS.find_homography_ransac(
-            xy1, xy2, ok, iters=iters, thresh=RANSAC_THRESH, device="cuda"))
+        def ransac(iters=iters):
+            return RS.find_homography_ransac(xy1, xy2, ok, iters=iters,
+                                             thresh=RANSAC_THRESH,
+                                             device="cuda")
+        r_ms = time_ms(ransac)
+        r_syncs = host_syncs(f"RANSAC {iters}", ransac)
+        with plain_kernels():
+            plain_r = time_ms(ransac, iters=3, warmup=1)
         print(f"time find_homography_ransac {iters} iterations, "
               f"{xy1.shape[0]} slots ({int(ok.sum())} valid): {r_ms:.3f} "
-              f"ms/call, host syncs per call {r_syncs} [{hw}]")
+              f"ms/call through K12, {plain_r:.3f} ms/call with its plain "
+              f"version, host syncs per call {r_syncs} [{hw}]")
+
+    stamp("the async chain under sync debug mode 'error'")
+    # -- detect_async -> compute_async -> knn2_ratio_match_masked ->
+    # find_homography_ransac at 4K: torch raises on any host sync
+    ef_chain = EfficientFeatures(nfeatures=NFEATURES, device="cuda")
+
+    def chain():
+        k1 = ef_chain.detect_async(frames_dev[1])
+        k2 = ef_chain.detect_async(frames_dev[2])
+        d1 = ef_chain.compute_async(frames_dev[1], k1)
+        d2 = ef_chain.compute_async(frames_dev[2], k2)
+        j, _, ok = TM.knn2_ratio_match_masked(d1, k1._slots["valid"], d2,
+                                              k2._slots["valid"])
+        src = torch.stack([k1._slots["x"], k1._slots["y"]], dim=1)
+        dst = torch.stack([k2._slots["x"], k2._slots["y"]], dim=1)[j.long()]
+        return (ok,) + RS.find_homography_ransac(
+            src, dst, ok, iters=512, thresh=RANSAC_THRESH, device="cuda")
+
+    want_chain = chain()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_chain = chain()
+    except RuntimeError as e:
+        fail(f"async chain: a host sync under sync debug mode 'error': {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not all(torch.equal(a, b) for a, b in zip(got_chain, want_chain)):
+        fail("async chain: the call under 'error' differs from the one "
+             "before it")
+    got = check_geometry("async chain", int(got_chain[0].sum()),
+                         int(got_chain[3]), got_chain[1].cpu().numpy(),
+                         warps[2] @ np.linalg.inv(warps[1]))
+    print(f"async chain frames 1 -> 2 (detect_async, compute_async, "
+          f"knn2_ratio_match_masked, find_homography_ransac 512) under sync "
+          f"debug mode 'error': no host sync; {got}")
+
+    # -- K12 and K13 on the main path's own inputs: bit-exact with plain --
+    for args, kwargs in recorded["smallest_eigvec9"]:
+        check_same(f"K12 on the main path's {tuple(args[0].shape)}",
+                   "smallest_eigvec9", RS.smallest_eigvec9(*args, **kwargs),
+                   RS.smallest_eigvec9_ref(*args, **kwargs))
+    print(f"K12 on the {len(recorded['smallest_eigvec9'])} systems of the "
+          "first main-path run that solved any: bit-identical to its plain "
+          "version")
+    for args, kwargs in recorded["select_cells"]:
+        for what, a, b in zip(("ys", "xs", "resp", "valid"),
+                              DK.select_cells(*args, **kwargs),
+                              D.select_topk_cells(*args, **kwargs)):
+            check_same(f"K13 on the main path's level {tuple(args[0].shape)}"
+                       f" {what}", "select_cells", a, b)
+    print(f"K13 on the {len(recorded['select_cells'])} levels of the first "
+          "main-path call that selected any: bit-identical to its plain "
+          "version")
 
     # -- kernel times: one main-path call's launches, replayed --------------
     times = {}
@@ -2417,7 +2618,8 @@ def main() -> int:
             for args, kwargs in calls:
                 f(*args, **kwargs)
 
-        plain_iters = 3 if name == "knn2_topk2" else ITERS
+        plain_iters = 3 if name in ("knn2_topk2", "smallest_eigvec9") \
+            else ITERS
         times[name] = (time_ms(lambda: replay(fn)),
                        time_ms(lambda: replay(ref), iters=plain_iters,
                                warmup=1))
@@ -2492,6 +2694,21 @@ def main() -> int:
           f"copies of the same {len(floats)} levels (not the same "
           f"function): {library['resize_u8_kernel']:.3f} ms [{hw}]")
     del floats
+    # torch.linalg.eigh on K12's systems: all nine eigenpairs in float32,
+    # the smallest's vector among them; it reads its status back each call
+    eigh_in = [a[0] for a, _ in recorded["smallest_eigvec9"]]
+
+    def eighs():
+        for a in eigh_in:
+            torch.linalg.eigh(a)
+
+    library["smallest_eigvec9"] = time_ms(eighs)
+    library_call["smallest_eigvec9"] = (
+        "torch.linalg.eigh on the same systems: every eigenpair in float32, "
+        "and a host read of its status per call")
+    print(f"time smallest_eigvec9 library call: torch.linalg.eigh on the "
+          f"same {len(eigh_in)} systems: {library['smallest_eigvec9']:.3f} "
+          f"ms [{hw}]")
     for nbytes in (32, 64):
         d = torch.from_numpy(rng.integers(0, 256, (N_KP, nbytes),
                                           dtype=np.uint8)).to(dev)

@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "eff_fast_harris_nms_cells": [_P, _P, _I, _I, _I, _I, _P, _I,
-                                  ctypes.c_float, _P, _P, _P, _P, _P],
+                                  ctypes.c_float, _P, _P, _P, _P, _P, _P],
     "eff_fast_harris_nms": [_P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P,
                             _P],
     "eff_fast_harris": [_P, _I, _I, _I, ctypes.c_float, _P, _P],
@@ -51,6 +51,11 @@ _SIGNATURES = {
     "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
     "eff_hs_desc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                     ctypes.c_float, _P, _P, ctypes.c_float, _P, _P],
+    "eff_jacobi_eigh9": [_P, _I, _P, _I, _P, _P],
+    "eff_cells_block_keys": [_P, _P, _I, _I, _I, _P, _P],
+    "eff_cells_segments": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "eff_cells_counts": [_P, _P, _I, _P, _P, _P],
+    "eff_cells_place": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "eff_hs_hist_blocks_per_sm": [_P],
     "eff_hs_desc_blocks_per_sm": [_P],
 }

@@ -8,11 +8,9 @@ and the seven parameter getter/setter pairs.
 The device is explicit: `EfficientFeatures(..., device="cuda")` (and `BAD`,
 `HashSIFT`) runs every op on the GPU and raises if CUDA is absent;
 `device="cpu"` runs the plain versions of the kernels.  The `_async` methods
-enqueue on the current CUDA stream and return device tensors;
+enqueue on the current CUDA stream and return device tensors, with no
+host read on any route (as the JAX package's `_async` calls);
 `KeyPoints.block()` waits for that stream.
-On the cells route (nonmax_radius >= 10) the tie-fallback decision reads
-one flag per pyramid level, so an `_async` call still syncs the host once
-per level there.
 
 `mesh=` (a `parallel.sharding.Mesh` over `torch.distributed` ranks, made by
 `make_mesh` or `make_mesh_2d`): every rank of the mesh makes the same call

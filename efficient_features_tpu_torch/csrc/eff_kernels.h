@@ -1,13 +1,12 @@
 // C ABI of the port's hand-written Hopper kernels.
 //
-// Each entry point launches its kernel (K1 and K7 two, K6 three, K3 four) on
-// `stream` (a
-// cudaStream_t passed as void*), does not synchronise, allocates nothing,
-// and returns cudaGetLastError() right after the launch (0 on success).
-// Outputs and
+// Each entry point launches its kernel (K1 and K7 two, K6 three, K3 four;
+// K13's four entry points one each) on `stream` (a cudaStream_t passed as
+// void*), does not synchronise, allocates nothing, and returns
+// cudaGetLastError() right after the launch (0 on success).  Outputs and
 // inputs are device pointers to contiguous row-major tensors that the Python
 // wrappers (ops/detect_kernels.py, ops/window_kernels.py, ops/matcher.py,
-// ops/image.py) allocate and check.
+// ops/image.py, ops/ransac.py) allocate and check.
 #pragma once
 
 #include <stdint.h>
@@ -30,13 +29,14 @@ extern "C" {
 // (dx0 > dx1) to a multiple of 4 (ops/detect_kernels.disc_segments).
 // resp: (h, w) float32 scratch, left holding the masked response map.
 // Outputs are (ceil(h/8), w): cell max response (-inf if no survivor), lowest
-// global row of a maximal survivor (INT32_MAX if none), survivor count.
+// global row of a maximal survivor (INT32_MAX if none), survivor count, and
+// the survivor bitmap (uint8, bit k set when row 8i + k survives).
 int eff_fast_harris_nms_cells(const uint8_t* img, const uint8_t* mask, int h,
                               int w, int threshold, int radius,
                               const int32_t* disc_segs, int seg_groups,
                               float harris_s2, float* resp, float* cellmax,
                               int32_t* cellrow, int32_t* cellcnt,
-                              void* stream);
+                              uint8_t* cellbits, void* stream);
 
 // K2: intensity-centroid moments over the radius-15 U_MAX disc, and the IC
 // angle.  img: (h, w) uint8; ys, xs: (n,) int32; valid: (n,) uint8, or
@@ -165,6 +165,41 @@ int eff_hs_desc(const uint8_t* img, int h, int w, int oy, int ox,
 // holds at once, with the shared memory carveout the launches ask for.
 int eff_hs_hist_blocks_per_sm(int* blocks);
 int eff_hs_desc_blocks_per_sm(int* blocks);
+
+// K13: exact top-quota selection from K1's cells (h, w the level's shape;
+// ld the row stride of the cell arrays, >= w); four kernels, the wrapper
+// (ops/detect_kernels.select_cells) sorts between them.
+// block_keys: keys (ceil(h/8) * ceil(w/8),) int64, per 8x8 block
+// (desc(value) << 32) + its winner's flat index, or (desc(-inf) << 32) +
+// h * w without a survivor.
+int eff_cells_block_keys(const float* cellmax, const int32_t* cellrow, int h,
+                         int w, int ld, int64_t* keys, void* stream);
+// segments: for the kq kept blocks (sorted_keys and their block numbers
+// `blocks`, both int64), 8 row segments each: seg_keys (kq * 8,) int64 the
+// block key's high half + the segment's first flat index, seg_bytes
+// (kq * 8,) uint8 its survivors, bit c for column c.
+int eff_cells_segments(const int64_t* sorted_keys, const int64_t* blocks,
+                       int kq, const uint8_t* cellbits, int w, int ld,
+                       int64_t* seg_keys, uint8_t* seg_bytes, void* stream);
+// counts: bytes_sorted[s] = seg_bytes[order[s]], counts[s] its popcount.
+int eff_cells_counts(const uint8_t* seg_bytes, const int64_t* order,
+                     int nseg, uint8_t* bytes_sorted, int32_t* counts,
+                     void* stream);
+// place: the quota output slots from the sorted segments and the inclusive
+// cumsum `ends` of their counts: ys, xs int32, resp float32, valid uint8.
+int eff_cells_place(const int64_t* seg_keys, const uint8_t* bytes_sorted,
+                    const int32_t* ends, int nseg, int quota, int w,
+                    int32_t* ys, int32_t* xs, float* resp, uint8_t* valid,
+                    void* stream);
+
+// K12: for each of n symmetric 9x9 float32 matrices ata (n, 9, 9), the
+// eigenvector (n, 9) float32 of its smallest eigenvalue, by `sweeps` sweeps
+// of Jacobi rotations in float64.  schedule: DEVICE (9, 2, 4) int64, per
+// round the 4 p's then the 4 q's of its disjoint pairs
+// (ops/ransac.jacobi_rounds).  No TPU kernel: it stands for
+// `torch.linalg.eigh`, which reads its status back to the host.
+int eff_jacobi_eigh9(const float* ata, int n, const int64_t* schedule,
+                     int sweeps, float* vec, void* stream);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

@@ -8,9 +8,11 @@
 // product exact), the 15 px border, an optional ROI mask, and disc NMS
 // where ties co-survive.
 // Each 8-row x 1-col cell is then reduced to (max survivor response, lowest
-// global row of a maximal survivor, survivor count); dead cells hold
-// (-inf, INT32_MAX, 0).  Output is exactly (ceil(h/8), w), for every
-// nonmax radius >= 1.
+// global row of a maximal survivor, survivor count, survivor bitmap: bit k
+// for row 8i + k); dead cells hold (-inf, INT32_MAX, 0, 0).  Output is
+// exactly (ceil(h/8), w), for every nonmax radius >= 1.  The bitmap lets
+// selection place every tied survivor without a dense map
+// (ops/detect.select_topk_cells).
 //
 // What bounds it on the H100: FAST at every pixel (48 integer operations)
 // and, per corner, Harris and the disc compares.  Corners are sparse, only
@@ -61,7 +63,8 @@ __global__ void __launch_bounds__(kThreads)
 nms_cells_kernel(const float* __restrict__ resp, int h, int w, int radius,
                  const int4* __restrict__ segs, int seg_groups,
                  float* __restrict__ cellmax, int32_t* __restrict__ cellrow,
-                 int32_t* __restrict__ cellcnt) {
+                 int32_t* __restrict__ cellcnt,
+                 uint8_t* __restrict__ cellbits) {
   __shared__ float s_val[kTilePixels];      // the tile of the map
   __shared__ uint16_t s_list[kTilePixels];  // tile indices of the corners
   __shared__ uint16_t s_left[kTilePixels];  // of those left after (a)
@@ -140,11 +143,13 @@ nms_cells_kernel(const float* __restrict__ resp, int h, int w, int radius,
   float best = neg_inf();
   int best_row = 2147483647;
   int count = 0;
+  unsigned bits = 0;
   for (int k = 0; k < 8; ++k) {
     const int ty = cr * 8 + k;
     const float v = s_val[ty * kTileW + cc];
     if (v == neg_inf()) continue;
     ++count;
+    bits |= 1u << k;
     if (v > best) {  // rows ascend: the first maximal survivor is the lowest
       best = v;
       best_row = y0 + ty;
@@ -154,6 +159,7 @@ nms_cells_kernel(const float* __restrict__ resp, int h, int w, int radius,
   cellmax[o] = best;
   cellrow[o] = best_row;
   cellcnt[o] = count;
+  cellbits[o] = static_cast<uint8_t>(bits);
 }
 
 }  // namespace
@@ -165,7 +171,7 @@ extern "C" int eff_fast_harris_nms_cells(const uint8_t* img,
                                          int seg_groups, float harris_s2,
                                          float* resp, float* cellmax,
                                          int32_t* cellrow, int32_t* cellcnt,
-                                         void* stream) {
+                                         uint8_t* cellbits, void* stream) {
   if (radius < 1 || radius > 32767 || seg_groups < 1 || h < 1 || w < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -175,6 +181,6 @@ extern "C" int eff_fast_harris_nms_cells(const uint8_t* img,
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   nms_cells_kernel<<<grid, kThreads, 0, s>>>(
       resp, h, w, radius, reinterpret_cast<const int4*>(disc_segs), seg_groups,
-      cellmax, cellrow, cellcnt);
+      cellmax, cellrow, cellcnt, cellbits);
   return cudaGetLastError();
 }

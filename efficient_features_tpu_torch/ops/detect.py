@@ -1,10 +1,9 @@
 """Keypoint detection ops: dense FAST-9, integer Harris, radius NMS, top-k.
 
 Port of `efficient_features_tpu/ops/detect.py`.  These dense functions are the
-plain versions behind the cells kernel (`ops/detect_kernels.py`) and the dense
-tie fallback of `select_topk_cells`.  Every output is exact (integers, or
-float math whose products are exact), so selection is bit-identical to the
-JAX package on any device.
+plain versions behind the detect kernels (`ops/detect_kernels.py`).  Every
+output is exact (integers, or float math whose products are exact), so
+selection is bit-identical to the JAX package on any device.
 
 Top-k differs in mechanism only: `torch.topk` is not stable, so selection
 uses stable sorts that break ties to the lowest flat index, as
@@ -198,58 +197,108 @@ def select_topk(resp: torch.Tensor, survivor: torch.Tensor, quota: int,
     return _slots(vals, idx, w)
 
 
-def select_topk_cells(cellmax, cellrow, cellcnt, h, w, quota,
-                      dense_fallback):
-    """Exact top-`quota` selection from `fast_harris_nms_cells` outputs.
+def _desc_key(v: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose ascending order is float32 `v` descending (no NaN),
+    in the high 32 bits: an index added below them breaks ties."""
+    b = v.view(torch.int32).to(torch.int64)
+    ascending = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return (-ascending - 1) * (1 << 32)
 
-    Combines the (ceil(h/8), >= w) 8-row cells into 8x8 blocks (at most one
-    untied survivor per block for nonmax_radius >= 10) and sorts the block
-    winners by (value desc, global index asc).  When a block holds tied
-    co-survivors (count > 1) the merge would drop one, so
-    `dense_fallback()` supplies the exact dense (vals, flat_idx) instead.
-    Deciding that reads one flag from the device: a host sync per call.
-    `select_topk_cells.fallbacks` counts the calls that took the fallback."""
+
+def _transpose8(cols: torch.Tensor) -> torch.Tensor:
+    """(n, 8) uint8 -> (n, 8) uint8: the 8x8 bit matrix of each row,
+    transposed (bit k of byte c becomes bit c of byte k), by three masked
+    swaps of one 64-bit word (Hacker's Delight, `transpose8`)."""
+    x = cols.contiguous().view(torch.int64)
+    for shift, mask in ((7, 0x00AA00AA00AA00AA), (14, 0x0000CCCC0000CCCC),
+                        (28, 0x00000000F0F0F0F0)):
+        t = (x ^ (x >> shift)) & mask
+        x = x ^ t ^ (t << shift)
+    return x.view(torch.uint8)
+
+
+_BYTE_TABLES: dict = {}
+
+
+def _byte_tables(device: torch.device):
+    """(popcount (256,), position of the r-th set bit (256 * 8,)) int64
+    tables on `device`, made once per device: a copy per call would sync
+    the host."""
+    if device not in _BYTE_TABLES:
+        pop = [bin(b).count("1") for b in range(256)]
+        sel = [[c for c in range(8) if b >> c & 1] for b in range(256)]
+        _BYTE_TABLES[device] = (
+            torch.tensor(pop, dtype=torch.int64, device=device),
+            torch.tensor([r + [0] * (8 - len(r)) for r in sel],
+                         dtype=torch.int64, device=device).reshape(-1))
+    return _BYTE_TABLES[device]
+
+
+def select_topk_cells(cellmax, cellrow, cellbits, h, w, quota):
+    """Exact top-`quota` selection from `fast_harris_nms_cells` outputs at
+    nonmax_radius >= 10, with fixed shapes and no host read.
+
+    The (ceil(h/8), >= w) 8-row cells combine into 8x8 blocks.  At radius
+    >= 10 any two pixels of a block lie inside each other's disc, so the
+    survivors of a block all carry its value; the block's winner is its
+    smallest survivor index.  Sorting the winners by (value desc, index
+    asc) and keeping the first min(quota, blocks) keeps every survivor of
+    the top `quota`: a block further back has that many winners ahead of
+    all its survivors.  The kept blocks split into their 8 row segments,
+    keyed (value, first column's index), each with its byte of survivors
+    (`cellbits` transposed); segments never interleave in flat-index
+    order, so after one sort of the segments output slot j falls in the
+    segment where the running survivor count passes j, at the matching set
+    bit of its byte.  The JAX package instead takes a dense fallback when a
+    block holds tied co-survivors (`lax.cond`); the slots are the same."""
     n = h * w
     quota = min(quota, n)
+    dev = cellmax.device
     cm = canonical_zero(cellmax[:, :w])
     cr = cellrow[:, :w]
-    cc = cellcnt[:, :w]
+    cb = cellbits[:, :w]
     h8 = cm.shape[0]
     w8 = -(-w // 8)
     padc = w8 * 8 - w
     if padc:
         cm = torch.nn.functional.pad(cm, (0, padc), value=RESP_SENTINEL)
         cr = torch.nn.functional.pad(cr, (0, padc), value=INT32_MAX)
-        cc = torch.nn.functional.pad(cc, (0, padc))
+        cb = torch.nn.functional.pad(cb, (0, padc))
     b_m = cm.reshape(h8, w8, 8)
     alive = b_m != RESP_SENTINEL
-    bmax = b_m.amax(dim=2)
-    counts = cc.reshape(h8, w8, 8).sum(dim=2)
-    cols = torch.arange(w8 * 8, dtype=torch.int32,
-                        device=cm.device).reshape(1, w8, 8)
+    bmax = b_m.amax(dim=2).reshape(-1)
+    cols = torch.arange(w8 * 8, dtype=torch.int32, device=dev).reshape(
+        1, w8, 8)
     rows = torch.where(alive, cr.reshape(h8, w8, 8), 0)
     dead = torch.full_like(rows, n)
     g3 = torch.where(alive, rows * w + cols, dead)
-    cand = (b_m == bmax[..., None]) & alive
-    bidx = torch.where(cand, g3, dead).amin(dim=2)
+    cand = (b_m == bmax.reshape(h8, w8, 1)) & alive
+    bidx = torch.where(cand, g3, dead).amin(dim=2).reshape(-1)
 
-    if bool((counts > 1).any()):
-        select_topk_cells.fallbacks += 1
-        vals, idx = dense_fallback()
-        return _slots(vals, idx, w)
-    # two-key sort: stable by index, then stable by value desc
-    bv = bmax.reshape(-1)
-    bi = bidx.reshape(-1)
-    order = torch.sort(bi, stable=True).indices
-    order = order[torch.sort(bv[order], descending=True, stable=True).indices]
-    kq = min(quota, bv.shape[0])
-    vals = bv[order[:kq]]
-    idx = bi[order[:kq]]
-    if kq < quota:
-        vals = torch.nn.functional.pad(vals, (0, quota - kq),
-                                       value=RESP_SENTINEL)
-        idx = torch.nn.functional.pad(idx, (0, quota - kq))
+    # the blocks: (value desc, winner index asc); dead blocks tie at the end
+    kq = min(quota, bmax.shape[0])
+    kept = torch.sort(_desc_key(bmax) + bidx.to(torch.int64),
+                      stable=True).indices[:kq]
+    # their row segments, (value desc, start asc), each a byte of columns
+    k8 = torch.arange(8, dtype=torch.int64, device=dev)
+    start = ((kept // w8 * 8)[:, None] + k8) * w + (kept % w8 * 8)[:, None]
+    value = bmax[kept]
+    order = torch.sort((_desc_key(value)[:, None] + start).reshape(-1)
+                       ).indices
+    segbits = _transpose8(cb.reshape(h8 * w8, 8)[kept]).reshape(-1)[
+        order].to(torch.int64)
+    start = start.reshape(-1)[order]
+    value = value[order // 8]
+    # output slot j: the segment whose survivors span it, and its set bit
+    pop, select = _byte_tables(dev)
+    count = pop[segbits]
+    end = torch.cumsum(count, 0)
+    j = torch.arange(quota, dtype=torch.int64, device=dev)
+    seg = torch.searchsorted(end, j, right=True)
+    valid = seg < end.shape[0]
+    seg = seg.clamp(max=end.shape[0] - 1)
+    rank = (j - end[seg] + count[seg]).clamp(0, 7)
+    col = select[segbits[seg] * 8 + rank]
+    vals = torch.where(valid, value[seg], RESP_SENTINEL)
+    idx = torch.where(valid, start[seg] + col, 0).to(torch.int32)
     return _slots(vals, idx, w)
-
-
-select_topk_cells.fallbacks = 0

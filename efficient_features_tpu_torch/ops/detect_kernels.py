@@ -1,14 +1,17 @@
-"""The detect kernels (K1, K7, K8, K9) and their plain versions.
+"""The detect kernels (K1, K7, K8, K9, K13) and their plain versions.
 
 Counterparts of `efficient_features_tpu/ops/pallas_kernels.py`'s
 `fast_harris_nms_cells` (K1, csrc/fast_harris_nms_cells.cu),
 `fast_harris_nms` (K7, csrc/fast_harris_nms.cu), `fast_harris` (K8,
-csrc/fast_harris.cu) and `radius_nms` (K9, csrc/radius_nms.cu).  Each
+csrc/fast_harris.cu) and `radius_nms` (K9, csrc/radius_nms.cu), and K13
+(csrc/select_cells.cu), the cells route's selection, which has no TPU
+kernel (`ops/detect.select_topk_cells` is its plain version).  Each
 wrapper runs its plain version (`*_ref`, built from `ops/detect.py`'s dense
 functions) for a CPU tensor and launches its CUDA kernel for a CUDA tensor;
 it never swaps one for the other.  `<wrapper>.launches` counts the
 wrapper's launches: one per call, also for K1 and K7, whose calls run two
-kernels (the response map, K8's kernel, then their NMS).
+kernels (the response map, K8's kernel, then their NMS), and K13, whose
+call runs four.
 
 K1 serves every nonmax radius >= 1: its NMS reads the response map in
 device memory along the disc's segments (`disc_segments`).  K7's NMS stages
@@ -105,10 +108,11 @@ def border_corners(image: torch.Tensor, threshold: int) -> torch.Tensor:
 def fast_harris_nms_cells_ref(image: torch.Tensor, threshold: int,
                               radius: int, mask: torch.Tensor | None = None):
     """Plain version of K1 from the dense functions: returns (cellmax f32,
-    cellrow i32, cellcnt i32), each (ceil(h/8), w); cell (i, x) covers rows
-    8i..8i+7 of column x.  Dead cells hold (-inf, INT32_MAX, 0).  `mask`
-    (bool (h, w), or None) drops corners before the NMS: a masked-out corner
-    neither survives nor suppresses."""
+    cellrow i32, cellcnt i32, cellbits u8), each (ceil(h/8), w); cell
+    (i, x) covers rows 8i..8i+7 of column x, and bit k of its cellbits is
+    set when row 8i + k survives.  Dead cells hold (-inf, INT32_MAX, 0, 0).
+    `mask` (bool (h, w), or None) drops corners before the NMS: a
+    masked-out corner neither survives nor suppresses."""
     h, w = image.shape
     corner = border_corners(image, threshold)
     if mask is not None:
@@ -129,7 +133,11 @@ def fast_harris_nms_cells_ref(image: torch.Tensor, threshold: int,
     cand = (m3 == cellmax[:, None, :]) & alive3
     cellrow = torch.where(cand, rows, D.INT32_MAX).amin(dim=1)
     cellcnt = alive3.sum(dim=1, dtype=torch.int32)
-    return cellmax, cellrow, cellcnt
+    weights = (1 << torch.arange(8, dtype=torch.int32,
+                                 device=image.device)).reshape(1, 8, 1)
+    cellbits = (alive3 * weights).sum(dim=1, dtype=torch.int32).to(
+        torch.uint8)
+    return cellmax, cellrow, cellcnt, cellbits
 
 
 def fast_harris_nms_cells(image: torch.Tensor, threshold: int, radius: int,
@@ -155,6 +163,7 @@ def fast_harris_nms_cells(image: torch.Tensor, threshold: int, radius: int,
     cellmax = torch.empty((h8, w), dtype=torch.float32, device=dev)
     cellrow = torch.empty((h8, w), dtype=torch.int32, device=dev)
     cellcnt = torch.empty((h8, w), dtype=torch.int32, device=dev)
+    cellbits = torch.empty((h8, w), dtype=torch.uint8, device=dev)
     resp = torch.empty((h, w), dtype=torch.float32, device=dev)   # scratch
     segs = _device_disc_segments(int(radius), dev)
     lib = _build.library()
@@ -164,13 +173,77 @@ def fast_harris_nms_cells(image: torch.Tensor, threshold: int, radius: int,
             segs.data_ptr(), segs.shape[0] // SEGMENT_GROUP,
             float(D.HARRIS_S2), resp.data_ptr(),
             cellmax.data_ptr(), cellrow.data_ptr(), cellcnt.data_ptr(),
-            stream_of(image))
+            cellbits.data_ptr(), stream_of(image))
         _build.check(rc, "fast_harris_nms_cells")
         fast_harris_nms_cells.launches += 1
-    return cellmax, cellrow, cellcnt
+    return cellmax, cellrow, cellcnt, cellbits
 
 
 fast_harris_nms_cells.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: the cells route's exact top-k selection, no host read
+# ---------------------------------------------------------------------------
+
+def select_cells(cellmax: torch.Tensor, cellrow: torch.Tensor,
+                 cellbits: torch.Tensor, h: int, w: int, quota: int):
+    """Top `quota` survivors of K1's cells as fixed-shape (ys, xs, resp,
+    valid) slots; see `ops/detect.select_topk_cells` (the plain version) for
+    the method.  On a CUDA tensor four kernels run around two `torch.sort`s
+    and one `torch.cumsum`, and nothing is read back."""
+    if cellmax.device.type == "cpu":
+        return D.select_topk_cells(cellmax, cellrow, cellbits, h, w, quota)
+    for t, dtype, name in ((cellmax, torch.float32, "cellmax"),
+                           (cellrow, torch.int32, "cellrow"),
+                           (cellbits, torch.uint8, "cellbits")):
+        require_cuda(t, dtype, name)
+        if t.shape != cellmax.shape or t.shape[0] != -(-h // 8) \
+                or t.shape[1] < w:
+            raise ValueError(f"{name} must be (ceil(h/8), >= w) like "
+                             f"cellmax, got {tuple(t.shape)}")
+    dev = cellmax.device
+    quota = min(quota, h * w)
+    ys = torch.empty(quota, dtype=torch.int32, device=dev)
+    xs = torch.empty(quota, dtype=torch.int32, device=dev)
+    resp = torch.empty(quota, dtype=torch.float32, device=dev)
+    valid = torch.empty(quota, dtype=torch.bool, device=dev)
+    if quota == 0:
+        return ys, xs, resp, valid
+    ld = cellmax.shape[1]
+    nb = -(-h // 8) * -(-w // 8)
+    kq = min(quota, nb)
+    keys = torch.empty(nb, dtype=torch.int64, device=dev)
+    seg_keys = torch.empty(kq * 8, dtype=torch.int64, device=dev)
+    seg_bytes = torch.empty(kq * 8, dtype=torch.uint8, device=dev)
+    bytes_sorted = torch.empty(kq * 8, dtype=torch.uint8, device=dev)
+    counts = torch.empty(kq * 8, dtype=torch.int32, device=dev)
+    stream = stream_of(cellmax)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        _build.check(lib.eff_cells_block_keys(
+            cellmax.data_ptr(), cellrow.data_ptr(), h, w, ld, keys.data_ptr(),
+            stream), "select_cells")
+        keys, blocks = torch.sort(keys, stable=True)
+        _build.check(lib.eff_cells_segments(
+            keys.data_ptr(), blocks.data_ptr(), kq, cellbits.data_ptr(), w,
+            ld, seg_keys.data_ptr(), seg_bytes.data_ptr(), stream),
+            "select_cells")
+        seg_keys, order = torch.sort(seg_keys)
+        _build.check(lib.eff_cells_counts(
+            seg_bytes.data_ptr(), order.data_ptr(), kq * 8,
+            bytes_sorted.data_ptr(), counts.data_ptr(), stream),
+            "select_cells")
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        _build.check(lib.eff_cells_place(
+            seg_keys.data_ptr(), bytes_sorted.data_ptr(), ends.data_ptr(),
+            kq * 8, quota, w, ys.data_ptr(), xs.data_ptr(), resp.data_ptr(),
+            valid.data_ptr(), stream), "select_cells")
+        select_cells.launches += 1
+    return ys, xs, resp, valid
+
+
+select_cells.launches = 0
 
 
 # ---------------------------------------------------------------------------

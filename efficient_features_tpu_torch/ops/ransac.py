@@ -6,8 +6,9 @@ hypotheses and no host read:
 
   - all M minimal sets are drawn at once (`_draw_minimal_sets`: Gumbel
     top-4 from the valid-match mask, no duplicate indices within a set),
-  - all M homographies are solved together (Hartley-normalised DLT through
-    a batched 9x9 `torch.linalg.eigh`),
+  - all M homographies are solved together (Hartley-normalised DLT; the
+    eigenvector of each 9x9 normal matrix's smallest eigenvalue comes from
+    K12, `smallest_eigvec9`, Jacobi rotations in float64),
   - all M x N reprojection errors are scored in one batched product,
   - the best hypothesis (the first of equal scores) is refitted once on its
     inliers (`_ransac_from_indices`).
@@ -17,9 +18,10 @@ reproduce `jax.random.gumbel`: the parity tests hand JAX's own indices to
 `_ransac_from_indices`.  Every matrix product runs in full float32 whatever
 the caller's `torch.set_float32_matmul_precision` says: TF32 would cost
 pixel-scale error after denormalisation (the JAX package's products use
-`precision=HIGHEST` for the same reason).  On a CUDA device
-`torch.linalg.eigh` checks its solver's status, which reads it back, so
-each solve may sync the host.
+`precision=HIGHEST` for the same reason).  The JAX package solves with
+`jnp.linalg.eigh`; the port does not use `torch.linalg.eigh`, which reads
+its solver's status back to the host, so a RANSAC call on the card only
+enqueues work, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,8 +30,118 @@ import math
 import numpy as np
 import torch
 
+from .. import _build
 from ..api import resolve_device
+from .detect_kernels import require_cuda, stream_of
 from .hash_sift import full_f32_matmul
+
+JACOBI_SWEEPS = 8
+
+
+def jacobi_rounds(n: int = 9) -> list[list[tuple[int, int]]]:
+    """The round-robin schedule of Jacobi rotations over an odd `n`: n
+    rounds of (n - 1) / 2 disjoint pairs (p < q), each pair once a sweep
+    (the circle method, index n the bye)."""
+    players = list(range(n + 1))
+    rounds = []
+    for _ in range(n):
+        pairs = [tuple(sorted((players[i], players[n - i])))
+                 for i in range((n + 1) // 2)]
+        rounds.append([pq for pq in pairs if n not in pq])
+        players = [players[0], players[-1]] + players[1:-1]
+    return rounds
+
+
+_SCHEDULES: dict = {}
+
+
+def _device_schedule(device: torch.device) -> torch.Tensor:
+    """`jacobi_rounds()` as a (9, 2, 4) int64 tensor on `device`, per round
+    the p's then the q's, made once per device: a copy per call would sync
+    the host."""
+    if device not in _SCHEDULES:
+        _SCHEDULES[device] = torch.tensor(
+            [[[p for p, _ in r], [q for _, q in r]] for r in jacobi_rounds()],
+            dtype=torch.int64, device=device)
+    return _SCHEDULES[device]
+
+
+def smallest_eigvec9_ref(ata: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12: the (..., 9) float32 eigenvector of the
+    smallest eigenvalue of each symmetric (..., 9, 9) float32 matrix.
+
+    JACOBI_SWEEPS sweeps of `jacobi_rounds` in float64, each round's four
+    rotations taken together: the rotations from the matrix as the round
+    finds it, then the pairs' columns, then their rows, then the pairs'
+    2x2 blocks set to (a_pp - t a_pq, 0; 0, a_qq + t a_pq), then V's
+    columns; the column of V at the smallest diagonal entry, the first on
+    ties.  Every step is one elementwise op, so K12 repeats it bit for
+    bit (see csrc/jacobi_eigh9.cu)."""
+    lead = ata.shape[:-2]
+    a = ata.reshape(-1, 9, 9).to(torch.float64, copy=True)
+    v = torch.eye(9, dtype=torch.float64, device=a.device).expand(
+        a.shape[0], 9, 9).clone()
+    sched = _device_schedule(a.device)
+    for _ in range(JACOBI_SWEEPS):
+        for r in range(sched.shape[0]):
+            p, q = sched[r]
+            app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
+            theta = (aqq - app) / (2 * apq)
+            rcp = 1.0 / (theta.abs() + torch.sqrt(theta * theta + 1))
+            t = torch.where(theta >= 0, rcp, -rcp)
+            t = torch.where(apq == 0, torch.zeros_like(t), t)
+            c = 1.0 / torch.sqrt(t * t + 1)
+            s = t * c
+            cc, ss = c[:, None, :], s[:, None, :]
+            gp, gq = a[:, :, p], a[:, :, q]
+            a[:, :, p] = cc * gp - ss * gq
+            a[:, :, q] = ss * gp + cc * gq
+            gp, gq = a[:, p, :], a[:, q, :]
+            a[:, p, :] = c[..., None] * gp - s[..., None] * gq
+            a[:, q, :] = s[..., None] * gp + c[..., None] * gq
+            a[:, p, p] = app - t * apq
+            a[:, q, q] = aqq + t * apq
+            a[:, p, q] = 0.0
+            a[:, q, p] = 0.0
+            gp, gq = v[:, :, p], v[:, :, q]
+            v[:, :, p] = cc * gp - ss * gq
+            v[:, :, q] = ss * gp + cc * gq
+    diag = a.diagonal(dim1=1, dim2=2)
+    best = torch.zeros(a.shape[0], dtype=torch.int64, device=a.device)
+    for j in range(1, 9):
+        lower = diag[:, j] < diag.gather(1, best[:, None])[:, 0]
+        best = torch.where(lower, torch.full_like(best, j), best)
+    vec = v.gather(2, best[:, None, None].expand(-1, 9, 1))[..., 0]
+    return vec.to(torch.float32).reshape(*lead, 9)
+
+
+def smallest_eigvec9(ata: torch.Tensor) -> torch.Tensor:
+    """The eigenvector of each symmetric (..., 9, 9) float32 matrix's
+    smallest eigenvalue; see `smallest_eigvec9_ref`.  One K12 launch on a
+    CUDA tensor, which reads nothing back."""
+    if ata.device.type == "cpu":
+        return smallest_eigvec9_ref(ata)
+    if ata.shape[-2:] != (9, 9):
+        raise ValueError(f"ata must be (..., 9, 9), got {tuple(ata.shape)}")
+    lead = ata.shape[:-2]
+    flat = ata.reshape(-1, 9, 9).contiguous()
+    require_cuda(flat, torch.float32, "ata")
+    n = flat.shape[0]
+    vec = torch.empty((n, 9), dtype=torch.float32, device=flat.device)
+    if n == 0:
+        return vec.reshape(*lead, 9)
+    sched = _device_schedule(flat.device)
+    lib = _build.library()
+    with torch.cuda.device(flat.device):
+        rc = lib.eff_jacobi_eigh9(flat.data_ptr(), n, sched.data_ptr(),
+                                  JACOBI_SWEEPS, vec.data_ptr(),
+                                  stream_of(flat))
+        _build.check(rc, "jacobi_eigh9")
+        smallest_eigvec9.launches += 1
+    return vec.reshape(*lead, 9)
+
+
+smallest_eigvec9.launches = 0
 
 
 def _normalization(pts, w):
@@ -71,8 +183,7 @@ def _dlt(src, dst, w):
     A = torch.cat([r1, r2], dim=-2) * torch.cat([w, w], dim=-1)[..., None]
     with full_f32_matmul():
         AtA = A.transpose(-1, -2) @ A                             # (..., 9, 9)
-    _, vecs = torch.linalg.eigh(AtA)        # ascending eigenvalues
-    Hn = vecs[..., :, 0].reshape(*vecs.shape[:-2], 3, 3)
+    Hn = smallest_eigvec9(AtA).reshape(*AtA.shape[:-2], 3, 3)
     # denormalise: H = Td^-1 Hn Ts, with Td^-1 in closed form
     sd = Td[..., 0, 0]
     cdx = -Td[..., 0, 2] / sd

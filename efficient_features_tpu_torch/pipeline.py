@@ -4,9 +4,8 @@ Port of `efficient_features_tpu/pipeline.py` for BAD and HashSIFT.
 Keypoint slots: each pyramid level owns a fixed `quota` range of the output
 arrays (ORB geometric split); invalid slots are masked; slot order within a
 level is (response desc, index asc).  Everything runs eagerly on the input's
-device.  Per level on the cells route (nonmax_radius >= 10), the only host
-sync is `select_topk_cells` reading whether a tie fallback is needed; the
-other routes read nothing back.
+device, and no route reads anything back: as in the JAX package, a
+`detect_async` / `detect_and_compute_async` call only enqueues work.
 """
 from __future__ import annotations
 
@@ -92,20 +91,6 @@ def validate_image_shape(cfg: FeatureConfig, h: int, w: int):
             "reduce nlevels or scale_factor")
 
 
-def _dense_selection(img, quota, cfg: FeatureConfig, lvl_mask=None):
-    """Exact dense (vals, flat_idx) top-`quota`: the tie fallback of
-    `select_topk_cells`, with the level's ROI mask applied before the NMS as
-    the cells kernel applies it."""
-    h, w = img.shape
-    corner = DK.border_corners(img, cfg.fast_threshold)
-    if lvl_mask is not None:
-        corner = corner & lvl_mask
-    resp = ops_detect.canonical_zero(ops_detect.harris_response(img))
-    surv = ops_detect.radius_nms(resp, corner, cfg.nonmax_radius)
-    masked = torch.where(surv, resp, ops_detect.RESP_SENTINEL)
-    return ops_detect.topk_stable(masked.reshape(-1), min(quota, h * w))
-
-
 def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
     """One pyramid level: FAST -> Harris -> NMS -> top-k -> angles.
 
@@ -115,7 +100,7 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
     kernel wrappers choose kernel or plain version from the tensor's
     device):
       - radius >= 10: K1, cells, with the mask, then the cell-reduced
-        selection (`efficient_features_tpu/pipeline.py:109`);
+        selection, K13 (`efficient_features_tpu/pipeline.py:109`);
       - radius < 10, no mask: K7, dense suppressed map, `select_topk`;
       - radius < 10 with a mask: K8, the mask, K9, `select_topk`.
     """
@@ -123,11 +108,10 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
     radius = cfg.nonmax_radius
     if min(h, w) > 2 * S.HALF_PATCH_SIZE:
         if radius >= 10:
-            cm, crow, ccnt = DK.fast_harris_nms_cells(
+            cm, crow, _, cbits = DK.fast_harris_nms_cells(
                 img, cfg.fast_threshold, radius, lvl_mask)
-            ys, xs, r, valid = ops_detect.select_topk_cells(
-                cm, crow, ccnt, h, w, quota,
-                lambda: _dense_selection(img, quota, cfg, lvl_mask))
+            ys, xs, r, valid = DK.select_cells(cm, crow, cbits, h, w,
+                                               quota)
         else:
             if lvl_mask is None:
                 suppressed = DK.fast_harris_nms(img, cfg.fast_threshold,

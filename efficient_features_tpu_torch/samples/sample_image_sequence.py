@@ -53,10 +53,10 @@ def streaming_step_fn(cfg, hw, max_ratio: float = 0.8,
     DeviceBuffer does, device_buffer.cpp:42-69).  Returns (step, state):
     step(frame) -> (n_keypoints, n_matches) device scalars, plus (H 3x3,
     n_inliers) when homography=True, where the batched RANSAC verifies the
-    frame-to-frame matches in the same step.  A step never reads a result
-    back itself; the host syncs it does are those of detection (one per
-    pyramid level) and of `torch.linalg.eigh` in RANSAC.  The RANSAC draw
-    reseeds with `ransac_seed` every step, as the JAX step reuses one key.
+    frame-to-frame matches in the same step.  A step reads nothing back:
+    it only enqueues work on the device (a frame given as a host array is
+    copied there first).  The RANSAC draw reseeds with `ransac_seed` every
+    step, as the JAX step reuses one key.
     state is the dict of state tensors (exposed for tests)."""
     dev = resolve_device(device)
     h, w = hw

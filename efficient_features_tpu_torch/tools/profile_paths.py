@@ -35,6 +35,8 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
   - `sequence`: one image-sequence step (detect and describe, the masked
     matcher in both directions, RANSAC with 256 iterations), alternating
     between two frames of a rigid warp of 64 different tiles;
+  - `ransac`: `find_homography_ransac` with 512 iterations on the masked
+    matcher's matches between those two frames (40000 slots);
   - `compute_hs`, `compute_bad`: standalone `HashSIFT(1.0, 256).compute`
     (K4 + K5) and `BAD(1.0, 256).compute` (K3) of 40000 keypoints of
     31-300 px (half of them on the 31 * 1.2^k / 300 px ladder, every 97th
@@ -42,7 +44,9 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
 The port's own kernels are reported by name, the IC kernel (`ic_kernel`,
 K2) and the warp (`warp_kernel`, K4) among them.
 For each path: the wall time per call (host clock around CALLS calls that
-end in a synchronize, no profiler), the device time per call by kernel
+end in a synchronize, no profiler) and the part of it before that
+synchronize (the host's enqueue time; equal to the wall where a call reads
+back), the device time per call by kernel
 from `torch.profiler` over another CALLS calls, and the device's idle
 share, 1 - device time / wall time, the device time of the sort kernels
 (top-k selection) and that of each of the port's own kernels (csrc/) by
@@ -134,8 +138,8 @@ def host_syncs(fn) -> int:
 
 
 def profile(fn, ours: frozenset) -> dict:
-    """Wall ms per call, device ms per call by kernel name, idle share,
-    host syncs per call."""
+    """Wall ms per call, the host's ms per call to enqueue them, device ms
+    per call by kernel name, idle share, host syncs per call."""
     from torch.profiler import ProfilerActivity
     for _ in range(3):
         fn()
@@ -143,6 +147,7 @@ def profile(fn, ours: frozenset) -> dict:
     t0 = time.perf_counter()
     for _ in range(CALLS):
         fn()
+    t1 = time.perf_counter()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / CALLS
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -158,7 +163,8 @@ def profile(fn, ours: frozenset) -> dict:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3 / CALLS
     device = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    return {"wall_ms": wall, "device_ms": device,
+    return {"wall_ms": wall, "enqueue_ms": (t1 - t0) * 1e3 / CALLS,
+            "device_ms": device,
             "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
             "kernels_ms": {k[:NAME]: v for k, v in ranked[:TOP]},
             "other_ms": sum(v for _, v in ranked[TOP:]),
@@ -185,6 +191,8 @@ def main() -> int:
     import torch.distributed as dist
     from efficient_features_tpu_torch import BAD, EfficientFeatures, HashSIFT
     from efficient_features_tpu_torch.parallel import sharding as SH
+    from efficient_features_tpu_torch.ops import matcher as TM
+    from efficient_features_tpu_torch.ops import ransac as RS
     from efficient_features_tpu_torch.ops import window_kernels as WK
     from efficient_features_tpu_torch.samples import sample_common as SC
     from efficient_features_tpu_torch.samples import \
@@ -215,6 +223,11 @@ def main() -> int:
     step, _ = SIS.streaming_step_fn(ef._cfg, (H, W), homography=True,
                                     ransac_iters=256, device="cuda")
     order = itertools.cycle(frames)     # each step matches the other frame
+    (k1, d1), (k2, d2) = (ef.detect_and_compute_async(f) for f in frames)
+    j, _, ok = TM.knn2_ratio_match_masked(d1, k1._slots["valid"], d2,
+                                          k2._slots["valid"])
+    xy1 = torch.stack([k1._slots["x"], k1._slots["y"]], dim=1)
+    xy2 = torch.stack([k2._slots["x"], k2._slots["y"]], dim=1)[j.long()]
     rng = np.random.default_rng(40000)
     ladder = np.float32([31.0 * 1.2 ** k for k in range(8)] + [300.0])
     kps = np.stack([rng.uniform(0, W - 1, NFEATURES),
@@ -237,6 +250,9 @@ def main() -> int:
              "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
              "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order)),
+             "ransac": lambda: RS.find_homography_ransac(xy1, xy2, ok,
+                                                         iters=512,
+                                                         device="cuda"),
              "compute_hs": lambda: hs_256.compute_async(scene, kps),
              "compute_bad": lambda: bad_256.compute_async(scene, kps),
              "mesh_dac": lambda: ef.detect_and_compute_async(scene,
@@ -286,7 +302,8 @@ def main() -> int:
     for name, fn in paths.items():
         res = profile(fn, ours)
         summary["paths"][name] = res
-        print(f"{name}: wall {res['wall_ms']:.3f} ms/call, device "
+        print(f"{name}: wall {res['wall_ms']:.3f} ms/call (enqueued in "
+              f"{res['enqueue_ms']:.3f}), device "
               f"{res['device_ms']:.3f} ms/call, idle share "
               f"{res['idle_share']:.3f}, host syncs {res['host_syncs']} "
               f"[{hw}] ({root})")

@@ -46,8 +46,8 @@ def tie_image():
 
 def tie_mask():
     """ROI mask of `tie_image` (255 = search) that cuts one of its two tied
-    8x8 blocks at column 66 and leaves the other tied, so selection still
-    takes the dense fallback and the fallback must apply the mask."""
+    8x8 blocks at column 66 and leaves the other tied, so selection must
+    place tied survivors of the masked map."""
     mask = np.full((96, 160), 255, np.uint8)
     mask[:, 66:] = 0
     return mask
@@ -218,12 +218,15 @@ def test_slice_on_the_card_matches_the_cpu(dev):
 
 @pytest.mark.cuda
 def test_tie_fallback_on_the_card_matches_the_cpu(dev):
-    before = TD.select_topk_cells.fallbacks
+    """A tied 8x8 block: both tied survivors are selected, from K1's
+    bitmap, with no host read, and the card equals the CPU."""
     slots = [EfficientFeatures(nfeatures=64, nlevels=1,
                                descriptor_type="bad_256",
                                device=d).detect(tie_image())._slots
              for d in ("cuda", "cpu")]
-    assert TD.select_topk_cells.fallbacks == before + 2
+    cnt = DK.fast_harris_nms_cells_ref(torch.from_numpy(tie_image()), 20,
+                                       15)[2]
+    assert int(slots[0]["count"]) == int(cnt.sum())
     for k in slots[1]:
         if k != "angle":        # f32 atan2 may differ by ULPs
             assert torch.equal(slots[0][k].cpu(), slots[1][k]), k
@@ -636,14 +639,12 @@ def test_masked_slice_on_the_card_matches_the_cpu(dev, radius, masked):
 
 @pytest.mark.cuda
 def test_masked_tie_fallback_on_the_card_matches_the_cpu(dev):
-    before = TD.select_topk_cells.fallbacks
     slots = [EfficientFeatures(nfeatures=64, nlevels=1,
                                descriptor_type="bad_256",
                                device=d).detect(tie_image(),
                                                 mask=tie_mask())._slots
              for d in ("cuda", "cpu")]
-    assert TD.select_topk_cells.fallbacks == before + 2
-    assert int(slots[1]["count"]) == 3
+    assert int(slots[0]["count"]) == int(slots[1]["count"]) == 3
     for k in slots[1]:
         if k != "angle":
             assert torch.equal(slots[0][k].cpu(), slots[1][k]), k
@@ -916,3 +917,68 @@ def test_resize_kernel_on_bands_matches_plain(dev, n):
             assert torch.equal(got[:rows],
                                levels[s][i * bh[s]:i * bh[s] + rows])
     assert I.resize_u8_kernel.launches == before + 7 * n
+
+
+@pytest.mark.cuda
+def test_jacobi_kernel_matches_plain(dev):
+    """K12 bit for bit its plain version (the same float64 rotations in the
+    same order), one launch a call, the batch shape kept."""
+    from efficient_features_tpu_torch.ops import ransac as TR
+    m = np.random.default_rng(12).standard_normal((513, 9, 12))
+    ata = torch.from_numpy((m @ m.transpose(0, 2, 1)).astype(np.float32))
+    for a in (ata, ata[:1], ata[:6].reshape(2, 3, 9, 9),
+              torch.zeros((2, 9, 9))):
+        a = a.to(dev)
+        before = TR.smallest_eigvec9.launches
+        got = TR.smallest_eigvec9(a)
+        assert TR.smallest_eigvec9.launches == before + 1
+        want = TR.smallest_eigvec9_ref(a)
+        assert got.shape == a.shape[:-1] and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_detect_and_ransac_read_nothing_back(dev):
+    """`detect_and_compute_async` at radius 15 (the cells route, a tied
+    block in the image) and `find_homography_ransac` enqueue work only:
+    torch's sync debug mode raises on any host sync."""
+    from efficient_features_tpu_torch.ops import ransac as TR
+    img = make_test_image(240, 320, seed=3)
+    img[100:196, 80:240] = tie_image()
+    img = torch.from_numpy(img).to(dev)
+    ef = EfficientFeatures(nfeatures=2000, device="cuda")
+    kps, _ = ef.detect_and_compute_async(img)
+    xy = torch.stack([kps._slots["x"], kps._slots["y"]], dim=1)
+    ok = kps._slots["valid"]
+    want = TR.find_homography_ransac(xy, xy + 2.0, ok, iters=64,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ef.detect_and_compute_async(img)
+        got = TR.find_homography_ransac(xy, xy + 2.0, ok, iters=64,
+                                        device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_select_cells_kernel_matches_plain(dev):
+    """K13 bit for bit its plain version (`ops/detect.select_topk_cells`):
+    tied blocks that share block rows, quotas that cut inside them, a width
+    and height that are not multiples of 8."""
+    for img, quotas in ((make_test_image(200, 280, seed=33), (1, 50, 5000)),
+                        (make_test_image(141, 203, seed=8), (3000,)),
+                        (tie_image(), (1, 2, 64)),
+                        (np.tile(tie_image(), (1, 4)), (1, 3, 5, 7, 100)),
+                        (np.tile(tie_image(), (3, 3)), (1, 3, 5, 7, 100))):
+        t = torch.from_numpy(img).to(dev)
+        h, w = img.shape
+        cm, cr, _, cb = DK.fast_harris_nms_cells(t, 20, 15)
+        for quota in quotas:
+            before = DK.select_cells.launches
+            got = DK.select_cells(cm, cr, cb, h, w, quota)
+            assert DK.select_cells.launches == before + 1
+            for a, b in zip(got, TD.select_topk_cells(cm, cr, cb, h, w,
+                                                      quota)):
+                assert a.dtype == b.dtype and torch.equal(a, b)

@@ -146,27 +146,19 @@ def _jax_cells_selection(cells, img, quota, radius=15):
                                 h, w, quota, dense_fallback)
 
 
-def _torch_dense_fallback(img, quota, radius=15):
-    h, w = img.shape
-    timg = _t(img)
-    corner = TD.fast_corner_mask(timg, 20) & TD.border_mask(h, w, 15, "cpu")
-    resp = TD.canonical_zero(TD.harris_response(timg))
-    surv = TD.radius_nms(resp, corner, radius)
-    masked = torch.where(surv, resp, TD.RESP_SENTINEL)
-    return lambda: TD.topk_stable(masked.reshape(-1), min(quota, h * w))
-
-
 @pytest.mark.parametrize("which,quota", [
     ("scene", 40), ("scene", 300), ("scene", 100000), ("tie", 64)])
 def test_select_topk_cells_bit_exact(scene, which, quota):
+    """The port selects from the cells and their survivor bitmap, with no
+    fallback; JAX takes its dense fallback where a block ties."""
     img = scene if which == "scene" else tie_image()
     h, w = img.shape
-    cells = TDK.fast_harris_nms_cells(_t(img), 20, 15)
-    want = _jax_cells_selection(cells, img, quota)
-    before = TD.select_topk_cells.fallbacks
-    got = TD.select_topk_cells(*cells, h, w, quota,
-                               _torch_dense_fallback(img, quota))
+    cm, cr, cc, cb = TDK.fast_harris_nms_cells(_t(img), 20, 15)
+    want = _jax_cells_selection((cm, cr, cc), img, quota)
+    got = TD.select_topk_cells(cm, cr, cb, h, w, quota)
     _check_slots(got, want)
-    assert int(got[3].sum()) > 0
-    took_fallback = TD.select_topk_cells.fallbacks - before
-    assert took_fallback == (1 if which == "tie" else 0)
+    # every survivor fits these quotas: all are selected, tied ones too
+    assert int(got[3].sum()) == min(quota, int(cc.sum())) > 0
+    blocks = torch.nn.functional.pad(cc, (0, -w % 8)).reshape(
+        cc.shape[0], -1, 8).sum(dim=2)
+    assert (int(blocks.max()) > 1) == (which == "tie")

@@ -7,8 +7,12 @@ top 4) and hands them to the port's `_ransac_from_indices`.  Tolerances:
     `eigh` on two backends);
   - inlier masks equal except for points whose squared error lies within
     1e-3 px^2 of the threshold's square.
-The behaviour tests mirror `tests/test_ransac.py` on the port.
+The behaviour tests mirror `tests/test_ransac.py` on the port; a guard
+traces `_ransac_from_indices` with `torch.compile(fullgraph=True)`, which
+fails on a Python branch on device data (a host read on the card).
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +172,19 @@ def test_same_h_under_tf32_setting():
         torch.set_float32_matmul_precision(prev)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_ransac_traces_without_a_host_read(monkeypatch):
+    """The float32-precision switch around the products is host state, not
+    a device read, and dynamo cannot trace it: the guard leaves it out."""
+    monkeypatch.setattr(TR, "full_f32_matmul", contextlib.nullcontext)
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.uniform(0, 500, (80, 2)).astype(np.float32))
+    dst = src * 1.1 + 3.0
+    valid = torch.from_numpy(rng.random(80) < 0.9)
+    idx = torch.from_numpy(rng.integers(0, 80, (32, 4)))
+    traced = torch.compile(TR._ransac_from_indices, fullgraph=True,
+                           backend="eager")
+    for g, e in zip(traced(src, dst, valid, 3.0, idx),
+                    TR._ransac_from_indices(src, dst, valid, 3.0, idx)):
+        assert torch.equal(g, e)
