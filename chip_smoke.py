@@ -9,7 +9,12 @@ input, radius 10-128, on the scene, the dense scene and 4K uniform noise,
 and an image whose corners all tie, so that each scans its whole disc),
 K12 Jacobi eigenvectors of 9x9 systems (bit for bit its plain version on
 random PSD matrices, DLT minimal sets and diagonal ties, and on the main
-path's own systems), K7 dense FAST+Harris+NMS
+path's own systems), K13 the cells route's selection (bit for bit its plain
+version, one launch a call, on the 4K scenes at quotas below, at and past
+the block count, with every 8x8 block live in one tie group, under the
+ROI, on a 4K tiling of the tie image, odd sizes, levels one block row high
+and one run of 8200 tied blocks, and on the main path's own levels; its
+time beside the plain version's), K7 dense FAST+Harris+NMS
 and K8 dense FAST+Harris (radius 1-9, bit-exact; K7 also on the scene
 plus noise, on equal responses, where ties co-survive, and on an image
 smaller than one tile), K9 disc NMS
@@ -101,6 +106,9 @@ launch count set to 0 just before and read just after:
   - the tie scene at 4K: `tie_image`'s pattern in the scene, tied 8x8
     blocks at level 0, `detect_and_compute` BAD-256 at radius 15, slots
     equal to the plain path and the CPU port, with its ms per call;
+  - a trace of one cells-route `detect_and_compute` at radius 15, with the
+    ROI, at radius 64 and on equal responses: each of K13's three kernels
+    launched once a level, and no sort kernel;
   - the async chain `detect_async` -> `compute_async` ->
     `knn2_ratio_match_masked` -> `find_homography_ransac` at 4K under
     `torch.cuda.set_sync_debug_mode("error")`;
@@ -479,10 +487,11 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
           slot costs only its bytes);
       K12 the 324 B matrix read and the 36 B vector written, and
           JACOBI_OPS float64 ops, per matrix;
-      K13 9 B read per cell and 13 B written per slot; per cell about 10
-          ops for its key, per kept block 64 for its bit transpose, per slot
-          24 for the binary search and the bit pick (the sorts between the
-          kernels are not counted)."""
+      K13 9 B read per cell (cellmax, cellrow, cellbits) and 13 B written
+          per slot, the least any selection moves: its keys, select and
+          sort can stay on chip; per cell about 10 ops for its key, per
+          kept block 64 for its bit transpose and per slot 4 to place it
+          (the select and the sort are not charged: a lower bound)."""
     if name in ("fast_harris_nms_cells", "fast_harris_nms"):
         from efficient_features_tpu_torch.ops import detect_kernels as DK
         h, w = args[0].shape
@@ -544,7 +553,7 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
         q = min(quota, h * w)
         kq = min(q, -(-h // 8) * -(-w // 8))
         return (9.0 * cellmax.numel() + 13.0 * q,
-                10.0 * cellmax.numel() + 64.0 * kq + 24.0 * q, 0.0, 0.0, 0.0)
+                10.0 * cellmax.numel() + 64.0 * kq + 4.0 * q, 0.0, 0.0, 0.0)
     if name == "smallest_eigvec9":
         n = args[0].numel() // 81
         return 360.0 * n, 0.0, 0.0, 0.0, float(JACOBI_OPS) * n
@@ -1095,36 +1104,77 @@ def main() -> int:
     stamp("K13 against plain")
     # -- K13: the cells route's selection, bit for bit its plain version ----
     tie_np = tie_image()
-    k13_cases = [("4K scene", sparse, None, (1, 8687, 100000)),
-                 ("4K dense scene", img, None, (8687, 40000)),
-                 ("4K dense scene, ROI", img, roi != 0, (8687,)),
-                 ("4K equal responses", torch.from_numpy(
-                     equal_image(H, W)).to(dev), None, (1000, 40000)),
-                 ("odd 1083x1917 crop", img[:1083, :1917].contiguous(), None,
-                  (3000,)),
-                 ("tie", torch.from_numpy(tie_np).to(dev), None, (1, 2, 64)),
-                 ("tie 1x4", torch.from_numpy(np.tile(tie_np, (1, 4))).to(
-                     dev), None, (1, 3, 5, 7, 100)),
-                 ("tie 3x3", torch.from_numpy(np.tile(tie_np, (3, 3))).to(
-                     dev), None, (1, 3, 5, 7, 100))]
-    for label, image, mask, quotas in k13_cases:
-        cm_, cr_, cc_, cb_ = DK.fast_harris_nms_cells(image, 20, 15, mask)
-        h_, w_ = image.shape
+    nb4k = -(-H // 8) * -(-W // 8)
+
+    def k1_cells(image, mask=None):
+        cm_, cr_, _, cb_ = DK.fast_harris_nms_cells(image, 20, 15, mask)
+        return cm_, cr_, cb_, *image.shape
+
+    def grid_cells(h_, w_, mask=None):
+        """Cells of survivors every 6 px from (3, 3), all of one response:
+        every 8x8 block live and tied with every other (`equal_image`
+        without K1's 15 px border)."""
+        surv = torch.zeros((h_, w_), dtype=torch.bool, device=dev)
+        surv[3::6, 3::6] = True
+        if mask is not None:
+            surv &= mask
+        cm_, cr_, _, cb_ = DK.cells_from_dense(
+            torch.where(surv, 1000.0, D.RESP_SENTINEL), surv)
+        return cm_, cr_, cb_, h_, w_
+
+    k13_cases = [
+        ("4K scene", lambda: k1_cells(sparse), (1, 8687, 100000)),
+        ("4K dense scene", lambda: k1_cells(img),
+         (8687, 40000, nb4k, 200000)),
+        ("4K dense scene, ROI", lambda: k1_cells(img, roi != 0),
+         (8687, nb4k)),
+        ("4K equal responses", lambda: k1_cells(torch.from_numpy(
+            equal_image(H, W)).to(dev)),
+         (1, 1000, 8687, 40000, nb4k - 1, nb4k, 200000)),
+        ("4K grid, every block live", lambda: grid_cells(H, W),
+         (1, 8687, nb4k - 1, nb4k, 200000)),
+        ("4K grid, ROI", lambda: grid_cells(H, W, roi != 0), (8687, nb4k)),
+        ("4K tie_image tiling", lambda: k1_cells(torch.from_numpy(np.tile(
+            tie_np, (-(-H // 96), W // 160))[:H].copy()).to(dev)),
+         (1, 1001, 40000, 200000)),
+        ("odd 1083x1917 crop",
+         lambda: k1_cells(img[:1083, :1917].contiguous()), (3000,)),
+        ("tie", lambda: k1_cells(torch.from_numpy(tie_np).to(dev)),
+         (1, 2, 64)),
+        ("tie 1x4", lambda: k1_cells(torch.from_numpy(
+            np.tile(tie_np, (1, 4))).to(dev)), (1, 3, 5, 7, 100)),
+        ("tie 3x3", lambda: k1_cells(torch.from_numpy(
+            np.tile(tie_np, (3, 3))).to(dev)), (1, 3, 5, 7, 100)),
+        ("8-row grid", lambda: grid_cells(8, W), (1, 5, 1000)),
+        ("8-row grid, 65600 wide (one run of 8200 blocks)",
+         lambda: grid_cells(8, 65600), (1, 8199, 8200, 20000)),
+        ("5-row grid", lambda: grid_cells(5, 77), (1, 5, 385)),
+        ("8-row crop", lambda: k1_cells(img[1000:1008].contiguous()),
+         (1, 100))]
+    for label, make, quotas in k13_cases:
+        cm_, cr_, cb_, h_, w_ = make()
         for quota in quotas:
             before = DK.select_cells.launches
             got = DK.select_cells(cm_, cr_, cb_, h_, w_, quota)
             if DK.select_cells.launches != before + 1:
                 fail(f"K13 {label} quota {quota}: not one launch")
-            for what, a, b in zip(("ys", "xs", "resp", "valid"), got,
-                                  D.select_topk_cells(cm_, cr_, cb_, h_, w_,
-                                                      quota)):
+            want = D.select_topk_cells(cm_, cr_, cb_, h_, w_, quota)
+            for what, a, b in zip(("ys", "xs", "resp", "valid"), got, want):
                 check_same(f"K13 {label} quota {quota} {what}",
                            "select_cells", a, b)
-        blocks = cc_.reshape(cc_.shape[0], -1, 8).sum(dim=2) \
-            if w_ % 8 == 0 else cc_
         print(f"K13 {label} {h_}x{w_}, quotas {quotas}: bit-identical to "
-              f"its plain version ({int(cc_.sum())} survivors, "
-              f"{int((blocks > 1).sum())} tied blocks)")
+              f"its plain version, one launch a call ({int(want[3].sum())} "
+              f"slots valid at quota {quotas[-1]})")
+    makers = {label: make for label, make, _ in k13_cases}
+    for label in ("4K dense scene", "4K grid, every block live"):
+        cm_, cr_, cb_, h_, w_ = makers[label]()
+        for quota in (8687, nb4k):
+            k_ms = time_ms(lambda: DK.select_cells(cm_, cr_, cb_, h_, w_,
+                                                   quota), iters=5)
+            p_ms = time_ms(lambda: D.select_topk_cells(cm_, cr_, cb_, h_, w_,
+                                                       quota), iters=5)
+            print(f"time K13 {label} quota {quota}: {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms [{hw}]")
 
     stamp("K2, K3, K4, K5, K11 against plain")
     # -- K2: IC moments exact, angles bit for bit ---------------------------
@@ -2317,6 +2367,37 @@ def main() -> int:
           f"{tie_ms:.3f} ms/call, host syncs per call {tie_syncs}; the scene "
           f"without the pattern {no_tie_ms:.3f} ms/call [{hw}]")
     del tie_dev, kps_p, desc_p, kps_c, desc_c
+
+    stamp("K13 on the cells route: its kernels in a trace")
+    # -- one cells-route dAC call runs each of K13's three kernels once a
+    # level, and no sort kernel runs anywhere in it
+    k13_want = {"cells_live_kernel": 8, "cells_bucket_kernel": 8,
+                "cells_place_kernel": 8}
+    ef_r15 = EfficientFeatures(nfeatures=NFEATURES,
+                               descriptor_type="hash_sift_256", device="cuda")
+    ef_r64 = EfficientFeatures(nfeatures=NFEATURES, nonmax_radius=64,
+                               descriptor_type="hash_sift_256", device="cuda")
+    equal_dev = torch.from_numpy(equal_image(H, W)).to(dev)
+    for label, fn in (
+            ("radius 15", lambda: ef_r15.detect_and_compute_async(img)),
+            ("radius 15 mask=roi",
+             lambda: ef_r15.detect_and_compute_async(img, mask=roi)),
+            ("radius 64", lambda: ef_r64.detect_and_compute_async(img)),
+            ("equal responses, radius 15",
+             lambda: ef_r15.detect_and_compute_async(equal_dev))):
+        listed = kernel_names(fn, want=k13_want)
+        got = traced_launches(listed, k13_want)
+        sorts = {k: c for k, (c, _) in listed.items() if "sort" in k.lower()}
+        if got != k13_want or sorts:
+            fail(f"cells-route dAC {label}: K13 launches {got} (expected "
+                 f"{k13_want}), sort kernels {sorts}")
+        k13_ms = {n: sum(t for k, (_, t) in listed.items() if n in k)
+                  for n in k13_want}
+        print(f"cells-route dAC {label}: K13 launches {got} (3 a level), no "
+              f"sort kernel; K13 device ms " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in k13_ms.items())
+              + f" [{hw}]")
+    del equal_dev
 
     stamp("the profiler on the card")
     # -- utils/profiler: timeit_ms beside time_ms on one device-bound call,

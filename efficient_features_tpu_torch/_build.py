@@ -52,10 +52,8 @@ _SIGNATURES = {
     "eff_hs_desc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                     ctypes.c_float, _P, _P, ctypes.c_float, _P, _P],
     "eff_jacobi_eigh9": [_P, _I, _P, _I, _P, _P],
-    "eff_cells_block_keys": [_P, _P, _I, _I, _I, _P, _P],
-    "eff_cells_segments": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
-    "eff_cells_counts": [_P, _P, _I, _P, _P, _P],
-    "eff_cells_place": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "eff_select_cells": [_P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_int64, _P,
+                         _P, _P, _P, _P],
     "eff_hs_hist_blocks_per_sm": [_P],
     "eff_hs_desc_blocks_per_sm": [_P],
 }
@@ -137,6 +135,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.eff_error_string.argtypes = [ctypes.c_int]
     lib.eff_error_string.restype = ctypes.c_char_p
+    lib.eff_select_cells_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.eff_select_cells_scratch_bytes.restype = ctypes.c_int64
     _State.lib = lib
     return lib
 

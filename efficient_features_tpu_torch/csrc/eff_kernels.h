@@ -1,7 +1,7 @@
 // C ABI of the port's hand-written Hopper kernels.
 //
-// Each entry point launches its kernel (K1 and K7 two, K6 three, K3 four;
-// K13's four entry points one each) on `stream` (a cudaStream_t passed as
+// Each entry point launches its kernel (K1 and K7 two, K6 and K13 three,
+// K3 four) on `stream` (a cudaStream_t passed as
 // void*), does not synchronise, allocates nothing, and returns
 // cudaGetLastError() right after the launch (0 on success).  Outputs and
 // inputs are device pointers to contiguous row-major tensors that the Python
@@ -167,30 +167,16 @@ int eff_hs_hist_blocks_per_sm(int* blocks);
 int eff_hs_desc_blocks_per_sm(int* blocks);
 
 // K13: exact top-quota selection from K1's cells (h, w the level's shape;
-// ld the row stride of the cell arrays, >= w); four kernels, the wrapper
-// (ops/detect_kernels.select_cells) sorts between them.
-// block_keys: keys (ceil(h/8) * ceil(w/8),) int64, per 8x8 block
-// (desc(value) << 32) + its winner's flat index, or (desc(-inf) << 32) +
-// h * w without a survivor.
-int eff_cells_block_keys(const float* cellmax, const int32_t* cellrow, int h,
-                         int w, int ld, int64_t* keys, void* stream);
-// segments: for the kq kept blocks (sorted_keys and their block numbers
-// `blocks`, both int64), 8 row segments each: seg_keys (kq * 8,) int64 the
-// block key's high half + the segment's first flat index, seg_bytes
-// (kq * 8,) uint8 its survivors, bit c for column c.
-int eff_cells_segments(const int64_t* sorted_keys, const int64_t* blocks,
-                       int kq, const uint8_t* cellbits, int w, int ld,
-                       int64_t* seg_keys, uint8_t* seg_bytes, void* stream);
-// counts: bytes_sorted[s] = seg_bytes[order[s]], counts[s] its popcount.
-int eff_cells_counts(const uint8_t* seg_bytes, const int64_t* order,
-                     int nseg, uint8_t* bytes_sorted, int32_t* counts,
-                     void* stream);
-// place: the quota output slots from the sorted segments and the inclusive
-// cumsum `ends` of their counts: ys, xs int32, resp float32, valid uint8.
-int eff_cells_place(const int64_t* seg_keys, const uint8_t* bytes_sorted,
-                    const int32_t* ends, int nseg, int quota, int w,
-                    int32_t* ys, int32_t* xs, float* resp, uint8_t* valid,
-                    void* stream);
+// ld the row stride of the three cell arrays, >= w), three kernels and
+// nothing between them.  scratch: at least
+// eff_select_cells_scratch_bytes(h, w, quota) bytes, 8-byte aligned;
+// 1 <= quota <= h * w < 2^31.  Outputs the quota slots (ys, xs int32, resp
+// float32, valid uint8) of ops/detect.select_topk_cells, bit for bit.
+int eff_select_cells(const float* cellmax, const int32_t* cellrow,
+                     const uint8_t* cellbits, int h, int w, int ld, int quota,
+                     void* scratch, int64_t scratch_bytes, int32_t* ys,
+                     int32_t* xs, float* resp, uint8_t* valid, void* stream);
+int64_t eff_select_cells_scratch_bytes(int h, int w, int quota);
 
 // K12: for each of n symmetric 9x9 float32 matrices ata (n, 9, 9), the
 // eigenvector (n, 9) float32 of its smallest eigenvalue, by `sweeps` sweeps

@@ -108,33 +108,41 @@ def border_corners(image: torch.Tensor, threshold: int) -> torch.Tensor:
 def fast_harris_nms_cells_ref(image: torch.Tensor, threshold: int,
                               radius: int, mask: torch.Tensor | None = None):
     """Plain version of K1 from the dense functions: returns (cellmax f32,
-    cellrow i32, cellcnt i32, cellbits u8), each (ceil(h/8), w); cell
-    (i, x) covers rows 8i..8i+7 of column x, and bit k of its cellbits is
-    set when row 8i + k survives.  Dead cells hold (-inf, INT32_MAX, 0, 0).
-    `mask` (bool (h, w), or None) drops corners before the NMS: a
-    masked-out corner neither survives nor suppresses."""
-    h, w = image.shape
+    cellrow i32, cellcnt i32, cellbits u8), each (ceil(h/8), w); see
+    `cells_from_dense` for the layout.  `mask` (bool (h, w), or None) drops
+    corners before the NMS: a masked-out corner neither survives nor
+    suppresses."""
     corner = border_corners(image, threshold)
     if mask is not None:
         corner = corner & mask
     resp = D.harris_response(image)
-    surv = D.radius_nms(resp, corner, radius)
+    return cells_from_dense(resp, D.radius_nms(resp, corner, radius))
+
+
+def cells_from_dense(resp: torch.Tensor, surv: torch.Tensor):
+    """K1's cell outputs of a (h, w) response map and its survivor map:
+    cell (i, x) covers rows 8i..8i+7 of column x; cellmax is the largest
+    surviving response there, cellrow the first row that holds it, cellcnt
+    the survivors and bit k of cellbits is set when row 8i + k survives.
+    Dead cells hold (-inf, INT32_MAX, 0, 0)."""
+    h, w = resp.shape
+    dev = resp.device
     h8 = -(-h // 8)
     mfin = torch.full((h8 * 8, w), D.RESP_SENTINEL, dtype=torch.float32,
-                      device=image.device)
-    alive = torch.zeros((h8 * 8, w), dtype=torch.bool, device=image.device)
+                      device=dev)
+    alive = torch.zeros((h8 * 8, w), dtype=torch.bool, device=dev)
     mfin[:h] = torch.where(surv, resp, D.RESP_SENTINEL)
     alive[:h] = surv
     m3 = mfin.reshape(h8, 8, w)
     alive3 = alive.reshape(h8, 8, w)
     cellmax = m3.amax(dim=1)
-    rows = torch.arange(h8 * 8, dtype=torch.int32,
-                        device=image.device).reshape(h8, 8, 1)
+    rows = torch.arange(h8 * 8, dtype=torch.int32, device=dev).reshape(
+        h8, 8, 1)
     cand = (m3 == cellmax[:, None, :]) & alive3
     cellrow = torch.where(cand, rows, D.INT32_MAX).amin(dim=1)
     cellcnt = alive3.sum(dim=1, dtype=torch.int32)
-    weights = (1 << torch.arange(8, dtype=torch.int32,
-                                 device=image.device)).reshape(1, 8, 1)
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=dev)).reshape(
+        1, 8, 1)
     cellbits = (alive3 * weights).sum(dim=1, dtype=torch.int32).to(
         torch.uint8)
     return cellmax, cellrow, cellcnt, cellbits
@@ -190,8 +198,8 @@ def select_cells(cellmax: torch.Tensor, cellrow: torch.Tensor,
                  cellbits: torch.Tensor, h: int, w: int, quota: int):
     """Top `quota` survivors of K1's cells as fixed-shape (ys, xs, resp,
     valid) slots; see `ops/detect.select_topk_cells` (the plain version) for
-    the method.  On a CUDA tensor four kernels run around two `torch.sort`s
-    and one `torch.cumsum`, and nothing is read back."""
+    the method.  On a CUDA tensor three kernels run, with no torch op
+    between them and nothing read back."""
     if cellmax.device.type == "cpu":
         return D.select_topk_cells(cellmax, cellrow, cellbits, h, w, quota)
     for t, dtype, name in ((cellmax, torch.float32, "cellmax"),
@@ -202,6 +210,8 @@ def select_cells(cellmax: torch.Tensor, cellrow: torch.Tensor,
                 or t.shape[1] < w:
             raise ValueError(f"{name} must be (ceil(h/8), >= w) like "
                              f"cellmax, got {tuple(t.shape)}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"a level of {h}x{w} pixels overflows int32 indices")
     dev = cellmax.device
     quota = min(quota, h * w)
     ys = torch.empty(quota, dtype=torch.int32, device=dev)
@@ -210,35 +220,15 @@ def select_cells(cellmax: torch.Tensor, cellrow: torch.Tensor,
     valid = torch.empty(quota, dtype=torch.bool, device=dev)
     if quota == 0:
         return ys, xs, resp, valid
-    ld = cellmax.shape[1]
-    nb = -(-h // 8) * -(-w // 8)
-    kq = min(quota, nb)
-    keys = torch.empty(nb, dtype=torch.int64, device=dev)
-    seg_keys = torch.empty(kq * 8, dtype=torch.int64, device=dev)
-    seg_bytes = torch.empty(kq * 8, dtype=torch.uint8, device=dev)
-    bytes_sorted = torch.empty(kq * 8, dtype=torch.uint8, device=dev)
-    counts = torch.empty(kq * 8, dtype=torch.int32, device=dev)
-    stream = stream_of(cellmax)
     lib = _build.library()
+    nbytes = lib.eff_select_cells_scratch_bytes(h, w, quota)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        _build.check(lib.eff_cells_block_keys(
-            cellmax.data_ptr(), cellrow.data_ptr(), h, w, ld, keys.data_ptr(),
-            stream), "select_cells")
-        keys, blocks = torch.sort(keys, stable=True)
-        _build.check(lib.eff_cells_segments(
-            keys.data_ptr(), blocks.data_ptr(), kq, cellbits.data_ptr(), w,
-            ld, seg_keys.data_ptr(), seg_bytes.data_ptr(), stream),
-            "select_cells")
-        seg_keys, order = torch.sort(seg_keys)
-        _build.check(lib.eff_cells_counts(
-            seg_bytes.data_ptr(), order.data_ptr(), kq * 8,
-            bytes_sorted.data_ptr(), counts.data_ptr(), stream),
-            "select_cells")
-        ends = torch.cumsum(counts, 0, dtype=torch.int32)
-        _build.check(lib.eff_cells_place(
-            seg_keys.data_ptr(), bytes_sorted.data_ptr(), ends.data_ptr(),
-            kq * 8, quota, w, ys.data_ptr(), xs.data_ptr(), resp.data_ptr(),
-            valid.data_ptr(), stream), "select_cells")
+        _build.check(lib.eff_select_cells(
+            cellmax.data_ptr(), cellrow.data_ptr(), cellbits.data_ptr(), h, w,
+            cellmax.shape[1], quota, scratch.data_ptr(), nbytes,
+            ys.data_ptr(), xs.data_ptr(), resp.data_ptr(), valid.data_ptr(),
+            stream_of(cellmax)), "select_cells")
         select_cells.launches += 1
     return ys, xs, resp, valid
 

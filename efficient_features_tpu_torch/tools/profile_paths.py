@@ -16,6 +16,8 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
     to each, whose window no warp holds, so that K3 builds each level's
     whole integral (`integral_rows_kernel`, `integral_cols_kernel`): the
     cost of the integral-image design on these levels;
+  - `cells_wrapper`: the 8 calls of K13's wrapper (`select_cells`) that
+    one `dac` call makes, replayed: the selection alone, host and device;
   - `masked`: the same call with `mask=` the ROI of
     `samples.sample_common.roi_mask` (K1 with its mask input);
   - `small_radius`: the same masked call at nonmax_radius 5 (K8, the mask,
@@ -27,6 +29,9 @@ Runs each path at 2160x3840 with 40000 features, HashSIFT-256 but for
     band);
   - `large_radius`: the `dac` call at nonmax_radius 64 (K1, as at every
     radius >= 10);
+  - `dac_equal`: the `dac` call on `equal_image` (a bright pixel every 6 px,
+    every corner of one response): every 8x8 block of level 0 inside K1's
+    border is live and ties with every other, the selection's worst case;
   - `fused_hs`: the `dac` call with `hs_fused=True` (the pyramid through
     K10 as everywhere, HashSIFT through the fused kernel K11 instead of
     K4 + K5);
@@ -88,6 +93,14 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def equal_image(h: int, w: int) -> np.ndarray:
+    """One bright pixel every 6 px each way: each is a FAST corner and all
+    have the same Harris response (chip_smoke.equal_image)."""
+    cell = np.full((6, 6), 40, np.uint8)
+    cell[3, 3] = 220
+    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
 
 
 def port_kernel_names(csrc: Path) -> frozenset:
@@ -175,6 +188,25 @@ def profile(fn, ours: frozenset) -> dict:
             "host_syncs": host_syncs(fn)}
 
 
+def recorded(module, name: str, fn) -> list:
+    """The (args, kwargs) of every call of the kernel wrapper `module.name`
+    that one call of fn makes."""
+    wrapper, calls = getattr(module, name), []
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return wrapper(*a, **k)
+
+    # the wrapper counts on the function its module name is bound to
+    recording.launches = 0
+    setattr(module, name, recording)
+    try:
+        fn()
+    finally:
+        setattr(module, name, wrapper)
+    return calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -191,6 +223,7 @@ def main() -> int:
     import torch.distributed as dist
     from efficient_features_tpu_torch import BAD, EfficientFeatures, HashSIFT
     from efficient_features_tpu_torch.parallel import sharding as SH
+    from efficient_features_tpu_torch.ops import detect_kernels as DK
     from efficient_features_tpu_torch.ops import matcher as TM
     from efficient_features_tpu_torch.ops import ransac as RS
     from efficient_features_tpu_torch.ops import window_kernels as WK
@@ -215,6 +248,7 @@ def main() -> int:
                              descriptor_type="hash_sift_256", device="cuda")
     scene = torch.from_numpy(SC.tiled_scene(H, W, 2160, False)).to(dev)
     roi = torch.from_numpy(SC.roi_mask(H, W)).to(dev)
+    equal = torch.from_numpy(equal_image(H, W)).to(dev)
     batch = torch.stack([torch.roll(scene, (17 * i, 29 * i), (0, 1))
                          for i in range(4)])
     base = SC.tiled_scene(H, W, 2160, True)
@@ -247,6 +281,7 @@ def main() -> int:
              "small_radius_nomask": lambda: ef5.detect_and_compute_async(
                  scene),
              "large_radius": lambda: ef64.detect_and_compute_async(scene),
+             "dac_equal": lambda: ef.detect_and_compute_async(equal),
              "fused_hs": lambda: ef_fused.detect_and_compute_async(scene),
              "batch4": lambda: ef.detect_and_compute_batch(batch),
              "sequence": lambda: step(next(order)),
@@ -257,21 +292,13 @@ def main() -> int:
              "compute_bad": lambda: bad_256.compute_async(scene, kps),
              "mesh_dac": lambda: ef.detect_and_compute_async(scene,
                                                              mesh=mesh)}
-    k3 = WK.bad_descriptors_windows
-    k3_calls = []
-
-    def recording(*a, **k):
-        k3_calls.append((a, k))
-        return k3(*a, **k)
-
-    # the wrapper counts on the function its module name is bound to
-    recording.launches = 0
-    WK.bad_descriptors_windows = recording
-    try:
-        ef_bad.detect_and_compute_async(scene)
-    finally:
-        WK.bad_descriptors_windows = k3
+    k3, k3_calls = WK.bad_descriptors_windows, recorded(
+        WK, "bad_descriptors_windows",
+        lambda: ef_bad.detect_and_compute_async(scene))
     paths["bad_wrapper"] = lambda: [k3(*a, **k) for a, k in k3_calls]
+    k13, k13_calls = DK.select_cells, recorded(
+        DK, "select_cells", lambda: ef.detect_and_compute_async(scene))
+    paths["cells_wrapper"] = lambda: [k13(*a, **k) for a, k in k13_calls]
 
     def with_big_keypoint(args):
         image, x, y, size, angle, valid, *rest = args

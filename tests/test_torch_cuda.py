@@ -962,23 +962,80 @@ def test_detect_and_ransac_read_nothing_back(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def grid_maps(h, w, mask=None):
+    """(response, survivor) maps whose survivors lie every 6 px each way
+    from (3, 3), all with one response (`equal_image`'s corners without its
+    15 px border): every 8x8 block is live, holds 1 to 4 tied survivors and
+    ties with every other.  mask (bool (h, w)) drops survivors."""
+    surv = np.zeros((h, w), bool)
+    surv[3::6, 3::6] = True
+    if mask is not None:
+        surv &= mask
+    return np.where(surv, np.float32(1000.0), -np.inf).astype(np.float32), surv
+
+
+def grid_cells(h, w, mask=None):
+    """K1's cells of `grid_maps`."""
+    return DK.cells_from_dense(*map(torch.from_numpy, grid_maps(h, w, mask)))
+
+
+def _select_cases(dev):
+    """(label, (cellmax, cellrow, cellbits, h, w) on dev, quotas) of the
+    K13 test, made one at a time."""
+    from efficient_features_tpu_torch.samples import sample_common as SC
+
+    def k1(img, mask=None):
+        m = None if mask is None else torch.from_numpy(mask != 0).to(dev)
+        cm, cr, _, cb = DK.fast_harris_nms_cells(torch.from_numpy(img).to(dev),
+                                                 20, 15, m)
+        return cm, cr, cb, *img.shape
+
+    def grid(h, w, mask=None):
+        cm, cr, _, cb = grid_cells(h, w, mask)
+        return cm.to(dev), cr.to(dev), cb.to(dev), h, w
+
+    scene = SC.tiled_scene(2160, 3840, seed=2160, distinct=False)
+    roi = SC.roi_mask(2160, 3840)
+    nb = 270 * 480
+    yield "scene", k1(make_test_image(200, 280, seed=33)), (1, 50, 5000)
+    yield "odd", k1(make_test_image(141, 203, seed=8)), (3000,)
+    yield "tie", k1(tie_image()), (1, 2, 64)
+    yield "tie 1x4", k1(np.tile(tie_image(), (1, 4))), (1, 3, 5, 7, 100)
+    yield "tie 3x3", k1(np.tile(tie_image(), (3, 3))), (1, 3, 5, 7, 100)
+    # every block live, one tie group: K1 on equal responses (its 15 px
+    # border dead), and the grid without a border
+    yield ("4K equal", k1(equal_image(2160, 3840)),
+           (1, 8687, nb - 1, nb, 200000))
+    yield "4K grid", grid(2160, 3840), (1, 8687, nb - 1, nb, 200000)
+    yield "4K grid, ROI", grid(2160, 3840, roi != 0), (8687, nb)
+    # a quota at and past the block count on the dense scene
+    yield "4K scene", k1(scene), (8687, nb, 200000)
+    yield "4K scene, ROI", k1(scene, roi), (8687, nb)
+    # tie groups of thousands of blocks that share block rows
+    yield ("4K tie tiling", k1(np.tile(tie_image(), (23, 24))[:2160]),
+           (1, 1001, 40000, 200000))
+    # levels one block row high
+    yield "8-row grid", grid(8, 3840), (1, 5, 1000)
+    # one run of 8200 tied blocks: the place kernel's rows one by one
+    yield "8-row grid, 65600 wide", grid(8, 65600), (1, 8199, 8200, 20000)
+    yield "5-row grid", grid(5, 77), (1, 5, 385)
+    yield "8-row image", k1(scene[1000:1008].copy()), (1, 100)
+
+
 @pytest.mark.cuda
 def test_select_cells_kernel_matches_plain(dev):
-    """K13 bit for bit its plain version (`ops/detect.select_topk_cells`):
-    tied blocks that share block rows, quotas that cut inside them, a width
-    and height that are not multiples of 8."""
-    for img, quotas in ((make_test_image(200, 280, seed=33), (1, 50, 5000)),
-                        (make_test_image(141, 203, seed=8), (3000,)),
-                        (tie_image(), (1, 2, 64)),
-                        (np.tile(tie_image(), (1, 4)), (1, 3, 5, 7, 100)),
-                        (np.tile(tie_image(), (3, 3)), (1, 3, 5, 7, 100))):
-        t = torch.from_numpy(img).to(dev)
-        h, w = img.shape
-        cm, cr, _, cb = DK.fast_harris_nms_cells(t, 20, 15)
+    """K13 bit for bit its plain version (`ops/detect.select_topk_cells`),
+    one launch a call: tied blocks that share block rows, quotas that cut
+    inside them, a width and height that are not multiples of 8, every
+    block live in one tie group, quotas at and past the block count, a ROI
+    mask, tie groups of thousands of blocks and levels one block row high
+    (the kernel's shared-memory and device-memory sorts both)."""
+    for label, (cm, cr, cb, h, w), quotas in _select_cases(dev):
         for quota in quotas:
             before = DK.select_cells.launches
             got = DK.select_cells(cm, cr, cb, h, w, quota)
             assert DK.select_cells.launches == before + 1
             for a, b in zip(got, TD.select_topk_cells(cm, cr, cb, h, w,
                                                       quota)):
-                assert a.dtype == b.dtype and torch.equal(a, b)
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    (label, quota)

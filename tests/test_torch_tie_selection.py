@@ -12,7 +12,12 @@ in place of `torch.linalg.eigh`.  Tolerances:
     sign (its float32 rounding is 3e-8).
 A guard traces `select_topk_cells` with `torch.compile(fullgraph=True)`,
 which fails on a Python branch on device data (a host read on the card);
-tests/test_torch_ransac.py holds RANSAC's.
+tests/test_torch_ransac.py holds RANSAC's.  The selection's worst case,
+every 8x8 block live and tied with every other, is held to JAX's at quotas
+around the block count.  Where a level's quota is 0 (7 features on
+123x77), the JAX package's `detect_and_compute` raises ZeroDivisionError
+and its `detect` does not: the port's `detect_and_compute` gives JAX's
+`detect` slots and the descriptors of JAX's describe stage on them.
 """
 import jax
 import jax.numpy as jnp
@@ -20,14 +25,16 @@ import numpy as np
 import pytest
 import torch
 
+from efficient_features_tpu import EfficientFeatures as JEF
 from efficient_features_tpu import pipeline as JP
 from efficient_features_tpu.ops import detect as JD
+from efficient_features_tpu.ops import image as JI
 from efficient_features_tpu_torch import EfficientFeatures as TEF
 from efficient_features_tpu_torch.ops import detect as TD
 from efficient_features_tpu_torch.ops import detect_kernels as DK
 from efficient_features_tpu_torch.ops import ransac as TR
 
-from test_torch_cuda import tie_image, tie_mask
+from test_torch_cuda import grid_maps, tie_image, tie_mask
 from util import make_test_image
 
 EXACT = ("x", "y", "octave", "size", "response", "valid", "count")
@@ -129,6 +136,82 @@ def test_select_topk_cells_matches_jax(which, quotas, masked):
         want = _jax_selection((cm, cr, cc), img, quota, mask)
         got = TD.select_topk_cells(cm, cr, cb, h, w, quota)
         _check(got, want)
+
+
+def _jax_select_dense(cells, resp, surv, quota):
+    """JAX's `select_topk_cells` on cells with its dense fallback over the
+    (response, survivor) maps."""
+    h, w = resp.shape
+    masked = jnp.where(jnp.asarray(surv), jnp.asarray(resp),
+                       jnp.float32(-jnp.inf))
+
+    def dense_fallback(_=None):
+        return jax.lax.top_k(masked.reshape(-1), min(quota, h * w))
+
+    return JD.select_topk_cells(*(jnp.asarray(c.numpy()) for c in cells),
+                                h, w, quota, dense_fallback)
+
+
+@pytest.mark.parametrize("quota", ["1", "nb-1", "nb", "2nb"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_select_topk_cells_every_block_live_matches_jax(quota, masked):
+    """Every 8x8 block live, one tie group (`grid_maps`, 61x95: 96 blocks,
+    partial last block row and column), quotas around the block count;
+    with a mask, a corner of the map dead."""
+    h, w = 61, 95
+    mask = None
+    if masked:
+        mask = np.ones((h, w), bool)
+        mask[h // 3:, w // 2:] = False
+    resp, surv = grid_maps(h, w, mask)
+    cm, cr, cc, cb = DK.cells_from_dense(torch.from_numpy(resp),
+                                         torch.from_numpy(surv))
+    nb = -(-h // 8) * -(-w // 8)
+    blocks = TD.select_topk_cells(cm, cr, cb, h, w, nb * 64)[3].sum()
+    assert int(blocks) == int(surv.sum())
+    if not masked:      # every block live
+        alive = np.pad(cm.numpy() != -np.inf, ((0, 0), (0, -w % 8)))
+        assert alive.reshape(-1, -(-w // 8), 8).any(axis=2).all()
+    q = {"1": 1, "nb-1": nb - 1, "nb": nb, "2nb": 2 * nb}[quota]
+    _check(TD.select_topk_cells(cm, cr, cb, h, w, q),
+           _jax_select_dense((cm, cr, cc), resp, surv, q))
+
+
+@pytest.mark.parametrize("descriptor_type", ["bad_256", "hash_sift_256"])
+def test_zero_quota_level_matches_jax_detect_and_describe(descriptor_type):
+    """7 features on 123x77: the last level's quota is 0.  The JAX
+    package's HashSIFT `detect_and_compute` raises there (a zero-size
+    reshape), its BAD one does not; the port's gives the slots of JAX's
+    `detect` and, row for row, the descriptors of JAX's describe stage
+    (`_compute_level_descriptors` on each blurred level that has slots),
+    which are BAD's `detect_and_compute` descriptors."""
+    img = make_test_image(123, 77, seed=5)
+    cfg = dict(nfeatures=7, descriptor_type=descriptor_type)
+    jcfg = JP.FeatureConfig(**cfg)
+    assert 0 in jcfg.quotas()
+    if descriptor_type == "hash_sift_256":
+        with pytest.raises(ZeroDivisionError):
+            JEF(**cfg).detect_and_compute(img)
+    kps, desc = TEF(device="cpu", **cfg).detect_and_compute_async(img)
+    if descriptor_type == "bad_256":
+        jkps, jdesc = JEF(**cfg).detect_and_compute_async(img)
+        want_slots, want = jkps._slots, np.asarray(jdesc)
+    else:
+        def describe(image):          # detect_core's slots are detect's
+            slots, levels, per_level = JP.detect_core(image, jcfg)
+            return slots, jnp.concatenate([JP._compute_level_descriptors(
+                JI.gaussian_blur7_u8(levels[s]), ys, xs, ang, valid, jcfg)
+                for s, ys, xs, valid, ang in per_level if ys.shape[0]])
+
+        want_slots, want = jax.jit(describe)(jnp.asarray(img))
+        want = np.asarray(want)
+    _check_slots(kps._slots, want_slots)
+    assert int(kps._slots["count"]) > 0
+    got = desc.numpy()
+    assert got.shape == want.shape
+    budget = int(1e-4 * want.size) + 1 if descriptor_type == "hash_sift_256" \
+        else 0
+    assert int((got != want).sum()) <= budget
 
 
 @pytest.mark.parametrize("which,nfeatures,nlevels,masked", [
