@@ -7,10 +7,15 @@ checks each against its plain PyTorch version on the card: K1 cells (its
 four outputs, the survivor bitmap among them, with and without its ROI mask
 input, radius 10-128, on the scene, the dense scene and 4K uniform noise,
 and an image whose corners all tie, so that each scans its whole disc),
-K12 Jacobi eigenvectors of 9x9 systems (bit for bit its plain version on
-random PSD matrices, DLT minimal sets and diagonal ties, and on the main
-path's own systems), K13 the cells route's selection (bit for bit its plain
-version, one launch a call, on the 4K scenes at quotas below, at and past
+K12 RANSAC's solve and verify (each of its four wrappers bit for bit its
+plain version, one launch a use: the Jacobi eigenvectors of 9x9 systems
+on random PSD matrices, DLT minimal sets and diagonal ties; the minimal
+sets' homographies on 512 random sets of a 40000-pair scene, on collinear,
+coincident and identical sets and at iters 1 and 4097; the scores and the
+one-H mask at 512 x 40000, at N off a block, with every slot invalid and
+with points at infinity; all four on the main path's own calls; the peak
+allocation of a RANSAC 512 call), K13 the cells route's selection (bit
+for bit its plain version, one launch a call, on the 4K scenes at quotas below, at and past
 the block count, with every 8x8 block live in one tie group, under the
 ROI, on a 4K tiling of the tie image, odd sizes, levels one block row high
 and one run of 8200 tied blocks, and on the main path's own levels; its
@@ -206,10 +211,26 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 # the bytes of the histogram plan (ops/hash_sift.hist_plan) read per call.
 HS_PATCH_OPS = 40.0 * 900 + 2.0 * 5202 + 6.0 * 128
 HS_PLAN_BYTES = 16 * 6 * 4 + 2601 * 4
-# K12: float64 ops per 9x9 matrix, per pair and round 14 for the rotation,
-# 3 x 54 for the column, row and V updates and 4 for the 2x2 block, over 4
-# pairs, 9 rounds and JACOBI_SWEEPS (8) sweeps, and 8 compares for the pick.
-JACOBI_OPS = 8 * 9 * 4 * (14 + 3 * 54 + 4) + 8
+# K12: float64 ops of the convergence test before a sweep of one 9x9
+# matrix (9 abs and 8 max of the diagonal, 72 abs and compares), and of a
+# sweep: the test, and per round 4 rotations of 16 ops (the subtract, the
+# doubling, 3 for d^2 + e^2, a square root, 2 for w, 3 for w^2 + e^2, a
+# square root, the reciprocal, 2 multiplies, the sign and the zero test)
+# and 3 x 54 for each pair's column, V and row updates, 9 rounds.  A
+# matrix costs its sweeps, the test that stopped it and 8 compares for the
+# pick; the sweeps are this run's (ops/ransac.jacobi_sweeps).
+JACOBI_TEST_OPS = 17 + 144
+JACOBI_SWEEP_OPS = JACOBI_TEST_OPS + 9 * 4 * (16 + 3 * 54)
+# K12: float32 ops of one minimal set's DLT around its Jacobi body: per
+# side of the Hartley normalisation 46 (8 for the centroid, 8 differences,
+# 12 for the squared distances, 4 square roots, 4 for the mean, the clamp,
+# the division, 8 scalings), 36 for the design, 45 entries of A^T A at 15
+# (8 products, 7 sums) and 45 conversions, and 54 for the denormalisation
+# and the division by h22.
+DLT4_OPS = 2 * 46 + 36 + 45 * 16 + 54
+# K12: float32 ops of one pair under one hypothesis: 12 for p, the abs, 2
+# compares, 2 divisions, 2 differences, 3 for e2 and the threshold compare.
+VERIFY_OPS = 23
 REPO = Path(__file__).resolve().parent
 
 
@@ -485,8 +506,18 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
           the plan once; per valid slot K4's affine and lerp per sample,
           and K5's work for each patch that is not all zero (an invalid
           slot costs only its bytes);
-      K12 the 324 B matrix read and the 36 B vector written, and
-          JACOBI_OPS float64 ops, per matrix;
+      K12 Jacobi (`smallest_eigvec9`): the 324 B matrix read and the
+          36 B vector written, and per matrix JACOBI_SWEEP_OPS float64 ops
+          a sweep it ran (its sweeps on these inputs, as the kernel stops
+          a converged matrix), the test that stopped it and 8 for the
+          pick; the solve (`solve_minimal_sets`): per set the 32 B of
+          indices, its 4 pairs (64 B) and the 36 B H, DLT4_OPS float32
+          ops and the float64 ops of its Jacobi body on these inputs;
+          the scores (`score_homographies`): 36 B of H and 4 B of score a
+          hypothesis, 17 B a pair, and VERIFY_OPS float32 ops per
+          hypothesis and valid pair (an invalid slot needs none); the
+          mask (`inlier_mask`): the H, 18 B a pair, VERIFY_OPS per valid
+          pair;
       K13 9 B read per cell (cellmax, cellrow, cellbits) and 13 B written
           per slot, the least any selection moves: its keys, select and
           sort can stay on chip; per cell about 10 ops for its key, per
@@ -554,9 +585,27 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
         kq = min(q, -(-h // 8) * -(-w // 8))
         return (9.0 * cellmax.numel() + 13.0 * q,
                 10.0 * cellmax.numel() + 64.0 * kq + 4.0 * q, 0.0, 0.0, 0.0)
-    if name == "smallest_eigvec9":
-        n = args[0].numel() // 81
-        return 360.0 * n, 0.0, 0.0, 0.0, float(JACOBI_OPS) * n
+    if name in ("smallest_eigvec9", "solve_minimal_sets"):
+        from efficient_features_tpu_torch.ops import ransac as RS
+        if name == "smallest_eigvec9":
+            ata, n = args[0], args[0].numel() // 81
+            nbytes, f32 = 360.0 * n, 0.0
+        else:
+            ata, n = RS.minimal_set_systems(*args)[0], args[2].shape[0]
+            nbytes, f32 = 132.0 * n, float(DLT4_OPS) * n
+        sweeps = RS.jacobi_sweeps(ata).double()
+        f64 = float((sweeps * JACOBI_SWEEP_OPS + JACOBI_TEST_OPS
+                     * (sweeps < RS.JACOBI_SWEEPS) + 8).sum())
+        return nbytes, f32, 0.0, 0.0, f64
+    if name == "score_homographies":
+        h, src, _, valid, _ = args
+        return (40.0 * h.shape[0] + 17.0 * src.shape[0],
+                float(VERIFY_OPS) * h.shape[0] * int(valid.sum()), 0.0, 0.0,
+                0.0)
+    if name == "inlier_mask":
+        src, valid = args[1], args[3]
+        return (40.0 + 18.0 * src.shape[0],
+                float(VERIFY_OPS) * int(valid.sum()), 0.0, 0.0, 0.0)
     raise KeyError(name)
 
 
@@ -732,9 +781,22 @@ def main() -> int:
          "torch form of it, ops/detect.select_topk_cells"),
         (RS, "smallest_eigvec9", RS.smallest_eigvec9_ref, "jacobi_eigh9.cu",
          f"no TPU kernel: {tpu}ransac.py:71 solves with jnp.linalg.eigh (an "
-         "XLA op); K12 stands for torch.linalg.eigh, which reads its status "
-         "back to the host"),
+         "XLA op); K12's jacobi9_kernel solves the refit's system and stands "
+         "for torch.linalg.eigh, which reads its status back to the host"),
+        (RS, "solve_minimal_sets", RS.solve_minimal_sets_ref,
+         "jacobi_eigh9.cu",
+         f"no TPU kernel: {tpu}ransac.py:51 _dlt of the minimal sets (XLA "
+         "ops, jnp.linalg.eigh at :71); K12's dlt4_solve_kernel"),
+        (RS, "score_homographies", RS.score_homographies_ref,
+         "ransac_verify.cu",
+         f"no TPU kernel: {tpu}ransac.py:93 _reproj_err2 and the mask and "
+         "sum at :120-122 (XLA ops); K12's ransac_score_kernel"),
+        (RS, "inlier_mask", RS.inlier_mask_ref, "ransac_verify.cu",
+         f"no TPU kernel: {tpu}ransac.py:124 and :129-130, the winner's and "
+         "the refit's masks (XLA ops); K12's ransac_mask_kernel"),
     ]
+    ransac_kernels = ["solve_minimal_sets", "score_homographies",
+                      "inlier_mask", "smallest_eigvec9"]
     names = [n for _, n, *_ in kernels]
     pyramid_kernels = ["resize_u8_kernel"]     # every detect call: 7 launches
     detect_kernels = pyramid_kernels + ["fast_harris_nms_cells",
@@ -1648,7 +1710,16 @@ def main() -> int:
               f"{TM.knn2_plan(N_KP, N_KP)[0]} train rows a block")
 
     stamp("K12 against plain")
-    # -- K12: Jacobi eigenvectors of 9x9 systems, bit for bit its twin ------
+    # -- K12: RANSAC's solve and verify, bit for bit their plain versions ---
+    def once(label, name, fn):
+        """fn's result; fails unless it launched K12's wrapper `name` once."""
+        before = getattr(RS, name).launches
+        out = fn()
+        if getattr(RS, name).launches != before + 1:
+            fail(f"K12 {label}: {getattr(RS, name).launches - before} "
+                 f"launches of {name}, not 1")
+        return out
+
     def dlt_systems(n, seed):
         """Normal matrices of the DLT of n exact 4-point sets (rank 8), as
         RANSAC's minimal sets give them."""
@@ -1675,10 +1746,8 @@ def main() -> int:
                        ("zero, identity, ties on the diagonal", edge12)):
         if ata is not edge12:
             ata = torch.from_numpy(np.asarray(ata, np.float32)).to(dev)
-        before = RS.smallest_eigvec9.launches
-        got = RS.smallest_eigvec9(ata)
-        if RS.smallest_eigvec9.launches != before + 1:
-            fail(f"K12 {label}: not one launch")
+        got = once(label, "smallest_eigvec9",
+                   lambda: RS.smallest_eigvec9(ata))
         check_same(f"K12 {label}", "smallest_eigvec9", got,
                    RS.smallest_eigvec9_ref(ata))
         if ata is edge12:   # repeated eigenvalues: the first smallest pick
@@ -1693,9 +1762,103 @@ def main() -> int:
               f"{off:.2e} of torch.linalg.eigh in float64 (up to sign)")
     ata12 = torch.from_numpy(dlt_systems(257, 14)).to(dev)
     k12_ms = launch_ms(lambda: RS.smallest_eigvec9(ata12), "jacobi9_kernel")
-    print(f"time K12 kernel-only, 257 systems: {sum(k12_ms):.4f} ms, bound "
-          f"{bound('smallest_eigvec9', [((ata12,), {})])[0]:.5f} ms by "
+    print(f"time K12 jacobi9_kernel only, 257 systems: {sum(k12_ms):.4f} ms, "
+          f"bound {bound('smallest_eigvec9', [((ata12,), {})])[0]:.5f} ms by "
           f"operations [{hw}]")
+
+    # 40000 pairs over a 4K frame under h12, 30% outliers, 40% of the slots
+    # valid, every 97th source point on h12's line at infinity
+    # (1e-5 x - 5e-6 y + 1 = 0), and three degenerate sets: slots 0-3
+    # collinear, 4-7 with two coincident pairs, slot 8 four times
+    g12 = np.random.default_rng(16)
+    h12 = np.array([[1.02, 0.03, 5.0], [-0.02, 0.98, -3.0],
+                    [1e-5, -5e-6, 1.0]])
+    xy = g12.uniform(0, 1, (N_KP, 2)) * (W, H)
+    xy[0:4] = [(100.0 + 50 * k, 200.0 + 25 * k) for k in range(4)]
+    xy[5], xy[7] = xy[4], xy[6]
+    ph = np.concatenate([xy, np.ones((N_KP, 1))], 1) @ h12.T
+    uv = ph[:, :2] / ph[:, 2:] + g12.normal(0, 0.8, (N_KP, 2))
+    uv[5], uv[7] = uv[4], uv[6]
+    out12 = g12.random(N_KP) < 0.3
+    out12[:9] = False
+    uv[out12] = g12.uniform(0, 1, (int(out12.sum()), 2)) * (W, H)
+    xy[7 + 97::97] = [-1e5, 0.0]
+    src12 = torch.from_numpy(xy.astype(np.float32)).to(dev)
+    dst12 = torch.from_numpy(uv.astype(np.float32)).to(dev)
+    ok12 = torch.from_numpy(g12.random(N_KP) < 0.4).to(dev)
+    h12_t = torch.from_numpy(h12.astype(np.float32)).to(dev)
+    t2 = float(np.float32(RANSAC_THRESH) ** 2)
+    far = int(((h12_t[2, 0] * src12[:, 0] + h12_t[2, 1] * src12[:, 1])
+               + h12_t[2, 2]).abs().lt(RS.EPS_INF).sum())
+    gen12 = torch.Generator(device=dev)
+    sets12 = {}
+    for iters in (512, 1, 4097):
+        gen12.manual_seed(iters)
+        sets12[f"iters {iters}"] = RS._draw_minimal_sets(ok12, iters, gen12)
+    sets12["collinear, coincident and identical sets"] = torch.tensor(
+        [[0, 1, 2, 3], [4, 5, 6, 7], [8, 8, 8, 8], [0, 1, 2, 4]],
+        device=dev)
+    for label, idx in sets12.items():
+        H12 = once(label, "solve_minimal_sets",
+                   lambda: RS.solve_minimal_sets(src12, dst12, idx))
+        check_same(f"K12 solve, {label}", "solve_minimal_sets", H12,
+                   RS.solve_minimal_sets_ref(src12, dst12, idx))
+        if label.startswith("iters 512"):
+            H512, idx512 = H12, idx
+            H12 = torch.cat([h12_t[None], H12[1:]])   # points at infinity
+        sc = once(label, "score_homographies",
+                  lambda: RS.score_homographies(H12, src12, dst12, ok12, t2))
+        check_same(f"K12 scores, {label}", "score_homographies", sc,
+                   RS.score_homographies_ref(H12, src12, dst12, ok12, t2))
+        if label.startswith("iters 512"):
+            best512 = H12[int(sc.argmax())]
+        print(f"K12 {label} ({idx.shape[0]} x {N_KP}): H and scores "
+              f"bit-identical to the plain versions, best score "
+              f"{int(sc.max())} of {int(ok12.sum())} valid")
+    if not far:
+        fail("K12: no point at infinity under h12")
+    n_off = N_KP - 13
+    for label, h, s_, d_, v_ in (
+            (f"h12, {far} points at infinity", h12_t, src12, dst12, ok12),
+            ("the best of 512 sets", best512, src12, dst12, ok12),
+            ("every slot invalid", h12_t, src12, dst12,
+             torch.zeros_like(ok12)),
+            (f"N = {n_off}, off a block", h12_t, src12[:n_off],
+             dst12[:n_off], ok12[:n_off])):
+        got = once(label, "inlier_mask",
+                   lambda: RS.inlier_mask(h, s_, d_, v_, t2))
+        for what, a, b in zip(("mask", "count"), got,
+                              RS.inlier_mask_ref(h, s_, d_, v_, t2)):
+            check_same(f"K12 mask, {label}, {what}", "inlier_mask", a, b)
+        sc = once(label, "score_homographies",
+                  lambda: RS.score_homographies(h[None], s_, d_, v_, t2))
+        if int(sc[0]) != int(got[1]):
+            fail(f"K12 {label}: score {int(sc[0])}, mask count "
+                 f"{int(got[1])}")
+        print(f"K12 mask, {label}: mask and count {int(got[1])} "
+              "bit-identical to the plain version and equal to the score")
+    solve_ms = launch_ms(lambda: RS.solve_minimal_sets(src12, dst12, idx512),
+                         "dlt4_solve_kernel")
+    score_ms = launch_ms(
+        lambda: RS.score_homographies(H512, src12, dst12, ok12, t2),
+        "ransac_score_kernel")
+    mask_ms = launch_ms(
+        lambda: RS.inlier_mask(H512[0], src12, dst12, ok12, t2),
+        "ransac_mask_kernel")
+    for what, ms, name, args in (
+            ("dlt4_solve_kernel, 512 sets", solve_ms, "solve_minimal_sets",
+             (src12, dst12, idx512)),
+            (f"ransac_score_kernel, 512 x {N_KP} ({int(ok12.sum())} valid)",
+             score_ms, "score_homographies", (H512, src12, dst12, ok12, t2)),
+            (f"ransac_mask_kernel, {N_KP}", mask_ms, "inlier_mask",
+             (H512[0], src12, dst12, ok12, t2))):
+        b_ms, b_by = bound(name, [(args, {})])
+        print(f"time K12 {what}: {sum(ms):.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by} [{hw}]")
+    sweeps = RS.jacobi_sweeps(RS.minimal_set_systems(src12, dst12,
+                                                     idx512)[0])
+    print(f"K12 Jacobi sweeps of the 512 sets: "
+          f"{sweeps.bincount(minlength=RS.JACOBI_SWEEPS + 1).tolist()}")
 
     stamp("main path 1: detect_and_compute")
     # -- main path 1: detect_and_compute through the kernels ----------------
@@ -1851,7 +2014,7 @@ def main() -> int:
         ransac_thresh=RANSAC_THRESH, device="cuda")
     seq, counts = drive("image sequence",
                         lambda: [step(f) for f in frames_dev],
-                        match_kernels + ["smallest_eigvec9"],
+                        match_kernels + ransac_kernels,
                         detect_calls=SEQ_FRAMES)
     for i in range(1, SEQ_FRAMES):
         count, n_match, Hm, n_inl = seq[i]
@@ -1877,7 +2040,7 @@ def main() -> int:
             src, dst, valid, iters=512, thresh=RANSAC_THRESH, device="cuda")
 
     (valid, Hm, inl, n_inl), counts = drive(
-        "two-image matching", two_image, match_kernels + ["smallest_eigvec9"],
+        "two-image matching", two_image, match_kernels + ransac_kernels,
         detect_calls=2)
     got = check_geometry("two-image", int(valid.sum()), int(n_inl),
                          Hm.cpu().numpy(), warps[1] @ np.linalg.inv(warps[0]))
@@ -2621,6 +2784,47 @@ def main() -> int:
                                           slots2["valid"])
     xy1 = torch.stack([slots1["x"], slots1["y"]], dim=1)
     xy2 = torch.stack([slots2["x"], slots2["y"]], dim=1)[j.long()]
+    # K12 on these matches, 512 x 40000: each kernel bit for bit its plain
+    # version, and the peak allocation of one call from the draw's sets on
+    gen_m = torch.Generator(device=dev)
+    gen_m.manual_seed(0)
+    idx_m = RS._draw_minimal_sets(ok, 512, gen_m)
+    H_m = RS.solve_minimal_sets(xy1, xy2, idx_m)
+    check_same("K12 solve, the main path's matches", "solve_minimal_sets",
+               H_m, RS.solve_minimal_sets_ref(xy1, xy2, idx_m))
+    sc_m = RS.score_homographies(H_m, xy1, xy2, ok, t2)
+    check_same("K12 scores, the main path's matches", "score_homographies",
+               sc_m, RS.score_homographies_ref(H_m, xy1, xy2, ok, t2))
+    for what, a, b in zip(
+            ("mask", "count"),
+            RS.inlier_mask(H_m[int(sc_m.argmax())], xy1, xy2, ok, t2),
+            RS.inlier_mask_ref(H_m[int(sc_m.argmax())], xy1, xy2, ok, t2)):
+        check_same(f"K12 mask, the main path's matches, {what}",
+                   "inlier_mask", a, b)
+    peaks = {}
+    for what, fn in (
+            ("from the minimal sets on (_ransac_from_indices)",
+             lambda: RS._ransac_from_indices(xy1, xy2, ok, RANSAC_THRESH,
+                                             idx_m)),
+            ("the whole call, the draw's (512, N) noise with it",
+             lambda: RS.find_homography_ransac(xy1, xy2, ok, iters=512,
+                                               thresh=RANSAC_THRESH,
+                                               device="cuda"))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks[what] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"K12 on the main path's matches, 512 x {xy1.shape[0]} "
+          f"({int(ok.sum())} valid): solve, scores and the best H's mask "
+          f"bit-identical to the plain versions; peak allocation of one "
+          f"RANSAC 512 call " + ", ".join(f"{v:.3f} MiB {k}"
+                                         for k, v in peaks.items())
+          + f" [{hw}]")
+    if peaks["from the minimal sets on (_ransac_from_indices)"] >= 8:
+        fail("K12: RANSAC allocates 8 MiB or more after its draw")
     for iters in (256, 512):
         def ransac(iters=iters):
             return RS.find_homography_ransac(xy1, xy2, ok, iters=iters,
@@ -2672,13 +2876,19 @@ def main() -> int:
           f"debug mode 'error': no host sync; {got}")
 
     # -- K12 and K13 on the main path's own inputs: bit-exact with plain --
-    for args, kwargs in recorded["smallest_eigvec9"]:
-        check_same(f"K12 on the main path's {tuple(args[0].shape)}",
-                   "smallest_eigvec9", RS.smallest_eigvec9(*args, **kwargs),
-                   RS.smallest_eigvec9_ref(*args, **kwargs))
-    print(f"K12 on the {len(recorded['smallest_eigvec9'])} systems of the "
-          "first main-path run that solved any: bit-identical to its plain "
-          "version")
+    for name in ransac_kernels:
+        fn, ref = getattr(RS, name), getattr(RS, name + "_ref")
+        for args, kwargs in recorded[name]:
+            got, want = fn(*args, **kwargs), ref(*args, **kwargs)
+            for a, b in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                check_same(f"K12 {name} on the main path's "
+                           f"{tuple(args[0].shape)}", name, a, b)
+        print(f"K12 {name} on the {len(recorded[name])} calls of the first "
+              "main-path run that made any: bit-identical to its plain "
+              "version" + (f" (scores of {recorded[name][0][0][0].shape[0]} "
+                           f"x {recorded[name][0][0][1].shape[0]})"
+                           if name == "score_homographies" else ""))
     for args, kwargs in recorded["select_cells"]:
         for what, a, b in zip(("ys", "xs", "resp", "valid"),
                               DK.select_cells(*args, **kwargs),
@@ -2699,7 +2909,7 @@ def main() -> int:
             for args, kwargs in calls:
                 f(*args, **kwargs)
 
-        plain_iters = 3 if name in ("knn2_topk2", "smallest_eigvec9") \
+        plain_iters = 3 if name in ["knn2_topk2"] + ransac_kernels \
             else ITERS
         times[name] = (time_ms(lambda: replay(fn)),
                        time_ms(lambda: replay(ref), iters=plain_iters,

@@ -51,7 +51,10 @@ _SIGNATURES = {
     "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
     "eff_hs_desc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                     ctypes.c_float, _P, _P, ctypes.c_float, _P, _P],
-    "eff_jacobi_eigh9": [_P, _I, _P, _I, _P, _P],
+    "eff_jacobi_eigh9": [_P, _I, _I, ctypes.c_double, _P, _P],
+    "eff_dlt4_solve": [_P, _P, _P, _I, _I, ctypes.c_double, _P, _P],
+    "eff_ransac_score": [_P, _I, _P, _P, _P, _I, ctypes.c_float, _P, _P],
+    "eff_ransac_mask": [_P, _P, _P, _P, _I, ctypes.c_float, _P, _P, _P],
     "eff_select_cells": [_P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_int64, _P,
                          _P, _P, _P, _P],
     "eff_hs_hist_blocks_per_sm": [_P],

@@ -178,14 +178,32 @@ int eff_select_cells(const float* cellmax, const int32_t* cellrow,
                      int32_t* xs, float* resp, uint8_t* valid, void* stream);
 int64_t eff_select_cells_scratch_bytes(int h, int w, int quota);
 
-// K12: for each of n symmetric 9x9 float32 matrices ata (n, 9, 9), the
-// eigenvector (n, 9) float32 of its smallest eigenvalue, by `sweeps` sweeps
-// of Jacobi rotations in float64.  schedule: DEVICE (9, 2, 4) int64, per
-// round the 4 p's then the 4 q's of its disjoint pairs
-// (ops/ransac.jacobi_rounds).  No TPU kernel: it stands for
-// `torch.linalg.eigh`, which reads its status back to the host.
-int eff_jacobi_eigh9(const float* ata, int n, const int64_t* schedule,
-                     int sweeps, float* vec, void* stream);
+// K12, RANSAC's solve and verify (no TPU kernel: the JAX package solves
+// and scores with XLA ops and `jnp.linalg.eigh`, ops/ransac.py:51-130).
+// Jacobi: up to `sweeps` sweeps of the rotations of ops/ransac.jacobi_rounds
+// in float64, a matrix stopping once every off-diagonal |a_pq| <= tol *
+// max |a_ii|.
+// eff_jacobi_eigh9: for each of n symmetric 9x9 float32 matrices ata
+// (n, 9, 9), the eigenvector vec (n, 9) float32 of its smallest
+// eigenvalue.  eff_dlt4_solve: for each of m minimal sets idx (m, 4) int64
+// (indices into src, dst (N, 2) float32), the homography H (m, 3, 3)
+// float32 of its Hartley-normalised DLT.  Each equals its plain version in
+// ops/ransac.py bit for bit.
+int eff_jacobi_eigh9(const float* ata, int n, int sweeps, double tol,
+                     float* vec, void* stream);
+int eff_dlt4_solve(const float* src, const float* dst, const int64_t* idx,
+                   int m, int sweeps, double tol, float* H, void* stream);
+// eff_ransac_score: scores (m,) int32, the inliers of each H (m, 3, 3)
+// among the n valid (uint8 0/1) pairs src -> dst (n, 2) float32, 8-byte
+// aligned, under the squared threshold t2; zeroes scores first.
+// eff_ransac_mask: the same for one H (3, 3): mask (n,) uint8 0/1 and
+// its count (one int32, zeroed first).  ops/ransac._inliers, bit for bit.
+int eff_ransac_score(const float* H, int m, const float* src,
+                     const float* dst, const uint8_t* valid, int n, float t2,
+                     int32_t* scores, void* stream);
+int eff_ransac_mask(const float* H, const float* src, const float* dst,
+                    const uint8_t* valid, int n, float t2, uint8_t* mask,
+                    int32_t* count, void* stream);
 
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);

@@ -51,12 +51,14 @@ K2) and the warp (`warp_kernel`, K4) among them.
 For each path: the wall time per call (host clock around CALLS calls that
 end in a synchronize, no profiler) and the part of it before that
 synchronize (the host's enqueue time; equal to the wall where a call reads
-back), the device time per call by kernel
-from `torch.profiler` over another CALLS calls, and the device's idle
-share, 1 - device time / wall time, the device time of the sort kernels
-(top-k selection) and that of each of the port's own kernels (csrc/) by
-name, the device time of each launch of K10 (`resize_kernel`, the
-pyramid's 7 levels, in launch order, averaged over the calls), and the
+back), the device time per call by kernel from `torch.profiler` over
+another CALLS calls and the kernel launches per call (memsets among them),
+the peak allocation on the card of one call (`max_memory_allocated` above
+what was allocated before it), the device's idle share, 1 - device time /
+wall time, the device time of the sort kernels (top-k selection) and that
+of each of the port's own kernels (csrc/) by name, the device time of each
+launch of K10 (`resize_kernel`, the pyramid's 7 levels, in launch order,
+averaged over the calls), and the
 host syncs of one call (torch's sync debug mode).  Prints the TOP kernels
 by device time and a JSON summary as the last line; `--out` also writes
 the summary to a file, `--paths` runs only the paths named.  `--root DIR`
@@ -152,11 +154,17 @@ def host_syncs(fn) -> int:
 
 def profile(fn, ours: frozenset) -> dict:
     """Wall ms per call, the host's ms per call to enqueue them, device ms
-    per call by kernel name, idle share, host syncs per call."""
+    per call by kernel name, kernel launches per call, idle share, host
+    syncs per call, and the peak of what one call allocates on the card."""
     from torch.profiler import ProfilerActivity
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     t0 = time.perf_counter()
     for _ in range(CALLS):
         fn()
@@ -168,17 +176,19 @@ def profile(fn, ours: frozenset) -> dict:
         for _ in range(CALLS):
             fn()
         torch.cuda.synchronize()
-    kernels = {}
+    kernels, launches = {}, 0
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total",
                     getattr(evt, "self_cuda_time_total", 0.0))
         if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3 / CALLS
+            launches += evt.count
     device = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall, "enqueue_ms": (t1 - t0) * 1e3 / CALLS,
             "device_ms": device,
             "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
+            "launches": launches / CALLS, "peak_mib": peak,
             "kernels_ms": {k[:NAME]: v for k, v in ranked[:TOP]},
             "other_ms": sum(v for _, v in ranked[TOP:]),
             "sort_ms": sum(v for k, v in ranked if "Sort" in k),
@@ -332,7 +342,9 @@ def main() -> int:
         print(f"{name}: wall {res['wall_ms']:.3f} ms/call (enqueued in "
               f"{res['enqueue_ms']:.3f}), device "
               f"{res['device_ms']:.3f} ms/call, idle share "
-              f"{res['idle_share']:.3f}, host syncs {res['host_syncs']} "
+              f"{res['idle_share']:.3f}, host syncs {res['host_syncs']}, "
+              f"{res['launches']:g} launches and {res['n_kernels']} kernel "
+              f"names a call, peak allocation {res['peak_mib']:.3f} MiB "
               f"[{hw}] ({root})")
         for k, v in res["kernels_ms"].items():
             print(f"  {v:9.3f} ms  {k}")

@@ -17,7 +17,9 @@ K11 bit for bit with `bad.affine_trig` on the card, K5 and K11 rows
 |diff| <= 1 on fewer than 2e-3 of the entries, HashSIFT descriptors at most
 int(1e-4 * bytes) + 1 differing bytes.  K5 and K11 must give the same
 bytes on every run, and K11 the bytes of K5 on K4's patches, also at the
-edges of their 8-patch blocks.
+edges of their 8-patch blocks.  K12's four kernels (the Jacobi
+eigenvectors, the minimal sets' solve, the scores, the one-H mask) and
+K13 are bit for bit their plain versions.
 """
 import numpy as np
 import pytest
@@ -934,6 +936,57 @@ def test_jacobi_kernel_matches_plain(dev):
         assert TR.smallest_eigvec9.launches == before + 1
         want = TR.smallest_eigvec9_ref(a)
         assert got.shape == a.shape[:-1] and torch.equal(got, want)
+
+
+def _ransac_scene(n, m, seed):
+    """n pairs under a homography, a fifth of them outliers, every fifth
+    slot invalid, a few sent to the plane at infinity; m minimal sets."""
+    rng = np.random.default_rng(seed)
+    h = np.array([[1.02, 0.03, 5.0], [-0.02, 0.98, -3.0], [1e-4, -5e-5, 1.0]])
+    src = rng.uniform(0, 600, (n, 2))
+    p = np.concatenate([src, np.ones((n, 1))], 1) @ h.T
+    dst = p[:, :2] / p[:, 2:] + rng.normal(0, 0.8, (n, 2))
+    out = rng.random(n) < 0.2
+    dst[out] = rng.uniform(0, 600, (int(out.sum()), 2))
+    valid = np.ones(n, bool)
+    valid[::5] = False
+    src[7::97] = [-1e4, 0.0]      # 1e-4 x - 5e-5 y + 1 = 0: at infinity
+    idx = np.stack([rng.choice(n, 4, replace=False) for _ in range(m)])
+    return (torch.from_numpy(src.astype(np.float32)),
+            torch.from_numpy(dst.astype(np.float32)),
+            torch.from_numpy(valid), torch.from_numpy(idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1000, 64), (777, 129)])
+def test_ransac_kernels_match_plain(dev, n, m):
+    """K12's solve and verify kernels bit for bit their plain versions (the
+    same float steps in the same order), one launch a call: the minimal
+    sets' H, every hypothesis's score, one H's mask and count; with n not a
+    multiple of a block, more hypotheses than one block's chunk, points at
+    infinity, invalid slots and a degenerate set (four equal indices)."""
+    from efficient_features_tpu_torch.ops import ransac as TR
+    src, dst, valid, idx = _ransac_scene(n, m, 16)
+    idx[3] = idx[3, 0]
+    src, dst, valid, idx = (t.to(dev) for t in (src, dst, valid, idx))
+    before = TR.solve_minimal_sets.launches
+    H = TR.solve_minimal_sets(src, dst, idx)
+    assert TR.solve_minimal_sets.launches == before + 1
+    assert torch.equal(H, TR.solve_minimal_sets_ref(src, dst, idx))
+    t2 = 9.0
+    before = TR.score_homographies.launches
+    scores = TR.score_homographies(H, src, dst, valid, t2)
+    assert TR.score_homographies.launches == before + 1
+    assert torch.equal(scores,
+                       TR.score_homographies_ref(H, src, dst, valid, t2))
+    assert int(scores.max()) > 0.5 * int(valid.sum())
+    for valid_k in (valid, torch.zeros_like(valid)):
+        before = TR.inlier_mask.launches
+        got = TR.inlier_mask(H[int(scores.argmax())], src, dst, valid_k, t2)
+        assert TR.inlier_mask.launches == before + 1
+        want = TR.inlier_mask_ref(H[int(scores.argmax())], src, dst, valid_k,
+                                  t2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

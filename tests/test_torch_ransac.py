@@ -10,6 +10,21 @@ top 4) and hands them to the port's `_ransac_from_indices`.  Tolerances:
 The behaviour tests mirror `tests/test_ransac.py` on the port; a guard
 traces `_ransac_from_indices` with `torch.compile(fullgraph=True)`, which
 fails on a Python branch on device data (a host read on the card).
+
+K12's plain versions, one by one, against the JAX package's functions:
+  - the solve (`solve_minimal_sets`) against `_dlt` with weights 1: H's
+    action on the 7x7 grid within 1e-2 px, on sets of four inliers, one
+    within 200 px of each corner of the frame.  A random 4-point set is
+    often nearly degenerate in float32: its H from the JAX package and
+    from the port then both stray from a float64 DLT by up to 1e5 px on
+    the grid (JAX's float32 `eigh` further; their scores differ too, by
+    16 of 141 inliers on one set of `_scene(seed=2)`).  Collinear,
+    coincident and identical sets, whose H neither pins down, are held
+    by their scores, which must be equal;
+  - the scores (`score_homographies`) and the one-H mask (`inlier_mask`)
+    against `_reproj_err2(H) <= t2 & valid`: equal except for points
+    whose squared error (float64) lies within 1e-3 px^2 of t2, with
+    points at infinity and masked rows among them.
 """
 import contextlib
 
@@ -188,3 +203,113 @@ def test_ransac_traces_without_a_host_read(monkeypatch):
     for g, e in zip(traced(src, dst, valid, 3.0, idx),
                     TR._ransac_from_indices(src, dst, valid, 3.0, idx)):
         assert torch.equal(g, e)
+
+
+CORNERS = ((0, 0), (1000, 0), (1000, 1000), (0, 1000))
+
+
+def _corner_sets(seed, m=64):
+    """A scene of 2000 pairs (30% outliers, 0.4 px noise) and m minimal
+    sets of four inliers, one within 200 px of each corner of the frame."""
+    _, src, dst, inl = _scene(seed=seed, n=2000)
+    rng = np.random.default_rng(seed)
+    near = [np.flatnonzero(inl & (np.abs(src - c).max(axis=1) < 200))
+            for c in CORNERS]
+    idx = np.stack([[rng.choice(z) for z in near] for _ in range(m)])
+    return src.astype(np.float32), dst.astype(np.float32), idx
+
+
+_JAX_DLT = jax.jit(JR._dlt)
+_JAX_ERR2 = jax.jit(JR._reproj_err2)
+
+
+def _jax_dlt(src, dst, idx):
+    return np.asarray(_JAX_DLT(jnp.asarray(src[idx]), jnp.asarray(dst[idx]),
+                               jnp.ones(idx.shape, jnp.float32)))
+
+
+def _solve(src, dst, idx):
+    return TR.solve_minimal_sets(torch.from_numpy(src), torch.from_numpy(dst),
+                                 torch.from_numpy(idx))
+
+
+@pytest.mark.parametrize("seed", [0, 6])
+def test_solve_matches_jax_dlt(seed):
+    src, dst, idx = _corner_sets(seed)
+    got = _solve(src, dst, idx)
+    assert got.dtype == torch.float32 and got.shape == (64, 3, 3)
+    want = _jax_dlt(src, dst, idx)
+    assert max(_grid_err(a, b) for a, b in zip(got.numpy(), want)) < 1e-2
+
+
+def _jax_inliers(H, src, dst, valid, thresh):
+    e2 = _JAX_ERR2(jnp.asarray(H), jnp.asarray(src), jnp.asarray(dst))
+    return np.asarray((e2 <= jnp.float32(thresh) * jnp.float32(thresh))
+                      & jnp.asarray(valid)[None])
+
+
+def test_degenerate_sets_score_as_jax():
+    """Collinear sets, sets with coincident pairs and one pair four times:
+    the port's H and JAX's may differ (a null space of more than one
+    dimension), their scores may not."""
+    H_true, src, dst, _ = _scene(seed=2)
+    src[0:4] = [(100 + 50 * k, 200 + 25 * k) for k in range(4)]
+    dst[0:4] = _apply_h(H_true, src[0:4])
+    src[5], dst[5], src[7], dst[7] = src[4], dst[4], src[6], dst[6]
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    valid = np.ones(len(src), bool)
+    valid[::5] = False
+    idx = np.array([[0, 1, 2, 3], [4, 5, 6, 7], [8, 8, 8, 8], [0, 1, 2, 9],
+                    [4, 4, 4, 9], [4, 5, 9, 9], [0, 3, 10, 10]])
+    got = TR.score_homographies(_solve(src, dst, idx), torch.from_numpy(src),
+                                torch.from_numpy(dst),
+                                torch.from_numpy(valid), 9.0)
+    want = _jax_inliers(_jax_dlt(src, dst, idx), src, dst, valid, 3.0).sum(1)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _verify_case(seed):
+    """(H (M, 3, 3), src, dst, valid): JAX's homographies of 64 random sets
+    of a scene, its true H, and h_inf, whose third row vanishes on the
+    scene's points at x = 1000 (a tenth of them) and nearly so at x = 999;
+    every fifth row masked and poisoned to fit the true H."""
+    H_true, src, dst, _ = _scene(seed=seed, n=600)
+    src[::10, 0] = 1000.0
+    src[1::10, 0] = 999.0
+    valid = np.ones(len(src), bool)
+    valid[::5] = False
+    dst[::5] = _apply_h(H_true, src[::5])
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    idx = np.random.default_rng(seed).integers(0, len(src), (64, 4))
+    h_inf = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [-1e-3, 0.0, 1.0]])
+    H = np.concatenate([_jax_dlt(src, dst, idx), H_true[None], h_inf[None]])
+    return H.astype(np.float32), src, dst, valid
+
+
+def _near_threshold(H, src, dst, t2):
+    e2 = ((_apply_h(H.astype(np.float64), src.astype(np.float64))
+           - dst) ** 2).sum(1)
+    return np.abs(e2 - t2) < 1e-3
+
+
+@pytest.mark.parametrize("seed", [1, 4])
+def test_scores_and_masks_match_jax(seed):
+    H, src, dst, valid = _verify_case(seed)
+    thresh = 3.0
+    t2 = float(np.float32(thresh) * np.float32(thresh))
+    want = _jax_inliers(H, src, dst, valid, thresh)
+    args = [torch.from_numpy(a) for a in (src, dst, valid)]
+    scores = TR.score_homographies(torch.from_numpy(H), *args, t2).numpy()
+    far = np.abs(src[:, 0] * np.float32(-1e-3) + np.float32(1.0)) < 1e-6
+    assert far.sum() >= 30 and not want[-1][far].any()
+    for k in range(len(H)):
+        mask, count = TR.inlier_mask(torch.from_numpy(H[k]), *args, t2)
+        mask = mask.numpy()
+        assert mask.dtype == bool and count.dtype == torch.int32
+        assert int(count) == mask.sum() == scores[k]
+        assert not mask[~valid].any()
+        diff = mask != want[k]
+        assert _near_threshold(H[k], src, dst, t2)[diff].all()
+        assert abs(int(scores[k]) - int(want[k].sum())) <= diff.sum()
+    assert scores[-2] > 0.6 * valid.sum()
