@@ -17,6 +17,11 @@ host read on any route (as the JAX package's `_async` calls);
 on the same input, computes its share on the detector's device, and gets
 back what the call without a mesh returns.  The collectives take the
 group's transport: NCCL for CUDA tensors, gloo through the host.
+
+While a torch profiler records, each public entry opens the span
+`eff/api.<entry>`, each host-to-card copy `eff/api.upload`, and each point
+where the host blocks on the card `eff/wait.<what>` (`block`, `count`,
+`fetch`); `utils/profiler.span`.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from . import pipeline as P
+from .utils.profiler import span
 
 
 class KeyPoints:
@@ -56,8 +62,9 @@ class KeyPoints:
     def block(self) -> "KeyPoints":
         """Wait for the stream that computes the slots."""
         dev = self._slots["x"].device
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+        with span("wait.block"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         return self
 
     @property
@@ -67,14 +74,17 @@ class KeyPoints:
     @property
     def count(self) -> int:
         """Number of valid keypoints (reads a device scalar: syncs)."""
-        return int(self._slots["count"])
+        with span("api.count"), span("wait.count"):
+            return int(self._slots["count"])
 
     def _compact(self):
         if self._host is None:
-            h = {k: v.cpu().numpy() for k, v in self._slots.items()
-                 if k != "count"}
-            m = h.pop("valid")
-            self._host = {k: v[m] for k, v in h.items()}
+            with span("api.as_arrays"):
+                with span("wait.fetch"):
+                    h = {k: v.cpu().numpy() for k, v in self._slots.items()
+                         if k != "count"}
+                m = h.pop("valid")
+                self._host = {k: v[m] for k, v in h.items()}
         return self._host
 
     def as_arrays(self):
@@ -127,7 +137,8 @@ def _as_u8_image(image, device: torch.device) -> torch.Tensor:
         img = torch.from_numpy(np.ascontiguousarray(img))
     if img.dtype != torch.uint8 or img.dim() != 2:
         raise ValueError("image must be a 2-D uint8 (grayscale) array")
-    return img.to(device).contiguous()
+    with span("api.upload"):
+        return img.to(device).contiguous()
 
 
 def _as_mask(mask, shape: tuple, device: torch.device) -> torch.Tensor:
@@ -141,7 +152,9 @@ def _as_mask(mask, shape: tuple, device: torch.device) -> torch.Tensor:
     if tuple(m.shape) != shape:
         raise ValueError(f"mask shape {tuple(m.shape)} != image shape "
                          f"{shape}")
-    return m.to(device) != 0
+    with span("api.upload"):
+        m = m.to(device)
+    return m != 0
 
 
 def _keypoints_to_xysa(keypoints) -> np.ndarray:
@@ -182,10 +195,13 @@ class _DescriptorBase:
     def compute(self, image, keypoints) -> np.ndarray:
         """Host (N, bytes) uint8 descriptors; `KeyPoints` rows are compacted
         to the valid keypoints."""
-        out = self.compute_async(image, keypoints).cpu().numpy()
-        if isinstance(keypoints, KeyPoints):
-            return out[keypoints._slots["valid"].cpu().numpy()]
-        return out
+        with span("api.compute"):
+            desc = self.compute_async(image, keypoints)
+            with span("wait.fetch"):
+                out = desc.cpu().numpy()
+                valid = keypoints._slots["valid"].cpu().numpy() \
+                    if isinstance(keypoints, KeyPoints) else None
+            return out if valid is None else out[valid]
 
     def compute_async(self, image, keypoints) -> torch.Tensor:
         """Descriptors for `keypoints` on `image` (the raw image, no blur),
@@ -197,29 +213,31 @@ class _DescriptorBase:
         device too.  Host (N, 4) arrays and lists of cv2.KeyPoint-likes give
         rows in the caller's order.  One kernel call covers every keypoint
         size."""
-        img = _as_u8_image(image, self._device)
-        if isinstance(keypoints, KeyPoints):
-            s = keypoints._slots
-            xysa = torch.stack([s["x"], s["y"], s["size"], s["angle"]],
-                               dim=1).to(self._device, torch.float32)
-            valid = s["valid"].to(self._device)
+        with span("api.compute_async"):
+            img = _as_u8_image(image, self._device)
+            if isinstance(keypoints, KeyPoints):
+                s = keypoints._slots
+                xysa = torch.stack([s["x"], s["y"], s["size"], s["angle"]],
+                                   dim=1).to(self._device, torch.float32)
+                valid = s["valid"].to(self._device)
+                return P.compute(img, xysa, valid, self._nbits, self._kind,
+                                 self._scale, self._fused)
+            if isinstance(keypoints, torch.Tensor):
+                if keypoints.dim() != 2 or keypoints.shape[1] != 4:
+                    raise ValueError(
+                        "device keypoints must be (N, 4) [x, y, size, angle]")
+                xysa = keypoints.to(self._device, torch.float32)
+            else:
+                xysa = torch.from_numpy(_keypoints_to_xysa(keypoints))
+                with span("api.upload"):
+                    xysa = xysa.to(self._device)
+            n = xysa.shape[0]
+            if n == 0:
+                return torch.zeros((0, self.descriptor_size()),
+                                   dtype=torch.uint8, device=self._device)
+            valid = torch.ones(n, dtype=torch.bool, device=self._device)
             return P.compute(img, xysa, valid, self._nbits, self._kind,
                              self._scale, self._fused)
-        if isinstance(keypoints, torch.Tensor):
-            if keypoints.dim() != 2 or keypoints.shape[1] != 4:
-                raise ValueError(
-                    "device keypoints must be (N, 4) [x, y, size, angle]")
-            xysa = keypoints.to(self._device, torch.float32)
-        else:
-            xysa = torch.from_numpy(_keypoints_to_xysa(keypoints)).to(
-                self._device)
-        n = xysa.shape[0]
-        if n == 0:
-            return torch.zeros((0, self.descriptor_size()), dtype=torch.uint8,
-                               device=self._device)
-        valid = torch.ones(n, dtype=torch.bool, device=self._device)
-        return P.compute(img, xysa, valid, self._nbits, self._kind,
-                         self._scale, self._fused)
 
     def descriptor_size(self) -> int:
         return self._nbits // 8
@@ -322,7 +340,8 @@ class EfficientFeatures:
     # -- detection ---------------------------------------------------------
 
     def detect(self, image, mask=None, mesh=None) -> KeyPoints:
-        return self.detect_async(image, mask, mesh).block()
+        with span("api.detect"):
+            return self.detect_async(image, mask, mesh).block()
 
     def detect_async(self, image, mask=None, mesh=None) -> KeyPoints:
         """Keypoints of one image.  mesh: split the image, and its whole
@@ -330,14 +349,15 @@ class EfficientFeatures:
         (`parallel/sharding.detect_pyramid_rows_sharded`); the slots equal
         the call without a mesh.  An image too small for the bands' halos
         raises ValueError."""
-        img, mask = self._inputs(image, mask)
-        if mesh is not None:
-            from .parallel import sharding as SH
-            slots = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
-                                                   mask=mask)
-        else:
-            slots = P.detect(img, self._cfg, mask)
-        return self._keypoints(slots, img.shape)
+        with span("api.detect_async"):
+            img, mask = self._inputs(image, mask)
+            if mesh is not None:
+                from .parallel import sharding as SH
+                slots = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
+                                                       mask=mask)
+            else:
+                slots = P.detect(img, self._cfg, mask)
+            return self._keypoints(slots, img.shape)
 
     def _keypoints(self, slots: dict, hw) -> KeyPoints:
         """Detector output with its static size bound and slot layout."""
@@ -364,22 +384,27 @@ class EfficientFeatures:
     def detect_and_compute(self, image, mask=None, mesh=None):
         """(KeyPoints, (count, bytes) uint8 numpy descriptors of the valid
         keypoints)."""
-        kps, desc = self.detect_and_compute_async(image, mask, mesh)
-        kps.block()
-        return kps, desc.cpu().numpy()[kps._slots["valid"].cpu().numpy()]
+        with span("api.detect_and_compute"):
+            kps, desc = self.detect_and_compute_async(image, mask, mesh)
+            kps.block()
+            with span("wait.fetch"):
+                desc = desc.cpu().numpy()
+                valid = kps._slots["valid"].cpu().numpy()
+            return kps, desc[valid]
 
     def detect_and_compute_async(self, image, mask=None, mesh=None):
         """(KeyPoints, slot-aligned (capacity, bytes) uint8 device tensor);
         invalid slots have zero rows.  mesh: as for `detect_async`, each
         band describing the keypoints in its rows."""
-        img, mask = self._inputs(image, mask)
-        if mesh is not None:
-            from .parallel import sharding as SH
-            slots, descs = SH.detect_pyramid_rows_sharded(
-                img, self._cfg, mesh, with_descriptors=True, mask=mask)
-        else:
-            slots, descs = P.detect_and_compute(img, self._cfg, mask)
-        return self._keypoints(slots, img.shape), descs
+        with span("api.detect_and_compute_async"):
+            img, mask = self._inputs(image, mask)
+            if mesh is not None:
+                from .parallel import sharding as SH
+                slots, descs = SH.detect_pyramid_rows_sharded(
+                    img, self._cfg, mesh, with_descriptors=True, mask=mask)
+            else:
+                slots, descs = P.detect_and_compute(img, self._cfg, mask)
+            return self._keypoints(slots, img.shape), descs
 
     def convert(self, keypoints: KeyPoints):
         """KeyPoints -> list of cv2.KeyPoint (reference `convert`)."""
@@ -402,26 +427,30 @@ class EfficientFeatures:
         as_host=True instead fetches everything and returns a list of
         (KeyPoints, descriptors) per image, descriptor rows compacted to the
         valid keypoints, as `detect_and_compute` gives them."""
-        from .parallel import sharding as SH
-        imgs = images if isinstance(images, torch.Tensor) else \
-            torch.from_numpy(np.ascontiguousarray(images))
-        if imgs.dim() != 3 or imgs.dtype != torch.uint8:
-            raise ValueError("images must be (B, H, W) uint8")
-        P.validate_image_shape(self._cfg, *imgs.shape[1:])
-        imgs = imgs.to(self._device).contiguous()
-        if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
-            slots, desc = SH.detect_and_compute_batch_2d(imgs, self._cfg,
-                                                         mesh)
-        else:
-            slots, desc = SH.detect_and_compute_batch(imgs, self._cfg, mesh)
-        if not as_host:
-            return slots, desc
-        host = {k: v.cpu() for k, v in slots.items()}
-        desc = desc.cpu().numpy()
-        return [(self._keypoints({k: v[i] for k, v in host.items()},
-                                 imgs.shape[1:]),
-                 desc[i][host["valid"][i].numpy()])
-                for i in range(imgs.shape[0])]
+        with span("api.detect_and_compute_batch"):
+            from .parallel import sharding as SH
+            imgs = images if isinstance(images, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(images))
+            if imgs.dim() != 3 or imgs.dtype != torch.uint8:
+                raise ValueError("images must be (B, H, W) uint8")
+            P.validate_image_shape(self._cfg, *imgs.shape[1:])
+            with span("api.upload"):
+                imgs = imgs.to(self._device).contiguous()
+            if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
+                slots, desc = SH.detect_and_compute_batch_2d(imgs, self._cfg,
+                                                             mesh)
+            else:
+                slots, desc = SH.detect_and_compute_batch(imgs, self._cfg,
+                                                          mesh)
+            if not as_host:
+                return slots, desc
+            with span("wait.fetch"):
+                host = {k: v.cpu() for k, v in slots.items()}
+                desc = desc.cpu().numpy()
+            return [(self._keypoints({k: v[i] for k, v in host.items()},
+                                     imgs.shape[1:]),
+                     desc[i][host["valid"][i].numpy()])
+                    for i in range(imgs.shape[0])]
 
     # -- descriptor metadata -------------------------------------------------
 

@@ -35,6 +35,7 @@ import torch
 from .. import _build
 from .detect_kernels import require_cuda, stream_of
 from .hash_sift import full_f32_matmul
+from ..utils.profiler import span
 
 BIG = 1 << 30                 # distance of a pair with an invalid side
 INT32_MAX = 2147483647        # second-best of a single train row
@@ -298,13 +299,15 @@ def knn2_ratio_match_masked(desc1: torch.Tensor, valid1: torch.Tensor,
     validity masks, so a streaming pipeline chains detect, describe and
     match on the device without reading anything back.  Pairs with an
     invalid side are at distance 1 << 30 (see the module docstring); `ok`
-    also requires a valid query with a valid best pair."""
-    _check_pair(desc1, desc2)
-    _need_two(desc2)
-    if desc1.shape[0] == 0:
-        return _empty(desc1)
-    j, best, second = knn2_topk2(desc1, valid1, desc2, valid2)
-    i_back, _, _ = knn2_topk2(desc2, valid2, desc1, valid1)
-    ok = (_ratio_ok(best, second, max_ratio) & _cross_ok(j, i_back)
-          & valid1.to(torch.bool) & (best < BIG))
-    return j, best, ok
+    also requires a valid query with a valid best pair.  Span:
+    `eff/ops.knn2_ratio_match_masked`."""
+    with span("ops.knn2_ratio_match_masked"):
+        _check_pair(desc1, desc2)
+        _need_two(desc2)
+        if desc1.shape[0] == 0:
+            return _empty(desc1)
+        j, best, second = knn2_topk2(desc1, valid1, desc2, valid2)
+        i_back, _, _ = knn2_topk2(desc2, valid2, desc1, valid1)
+        ok = (_ratio_ok(best, second, max_ratio) & _cross_ok(j, i_back)
+              & valid1.to(torch.bool) & (best < BIG))
+        return j, best, ok

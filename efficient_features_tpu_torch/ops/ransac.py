@@ -41,6 +41,7 @@ from .. import _build
 from ..api import resolve_device
 from .detect_kernels import require_cuda, stream_of
 from .hash_sift import full_f32_matmul
+from ..utils.profiler import span
 
 JACOBI_SWEEPS = 8
 # A matrix's sweeps stop once every off-diagonal entry is at most its
@@ -465,19 +466,21 @@ def _ransac_from_indices(src, dst, valid, thresh: float, idx):
     then the winner's mask, the refit and its mask."""
     t2 = float(np.float32(thresh) * np.float32(thresh))
     src, dst, valid = src.contiguous(), dst.contiguous(), valid.contiguous()
-    H = solve_minimal_sets(src, dst, idx)
-    scores = score_homographies(H, src, dst, valid, t2)
-    bi = torch.argmax(scores).reshape(1)    # the first maximum
-    H_best = H.index_select(0, bi)[0]
-    best_inl, best_score = inlier_mask(H_best, src, dst, valid, t2)
+    with span("ransac.solve_score"):
+        H = solve_minimal_sets(src, dst, idx)
+        scores = score_homographies(H, src, dst, valid, t2)
+        bi = torch.argmax(scores).reshape(1)    # the first maximum
+        H_best = H.index_select(0, bi)[0]
+        best_inl, best_score = inlier_mask(H_best, src, dst, valid, t2)
     # one weighted refit on the winner's inliers; keep the minimal-set
     # estimate when the refit is worse or the winner has < 4 inliers
-    H_ref = _dlt(src, dst, best_inl.to(src.dtype))
-    inl_ref, n_ref = inlier_mask(H_ref, src, dst, valid, t2)
-    better = (n_ref >= best_score) & (best_score >= 4)
-    return (torch.where(better, H_ref, H_best),
-            torch.where(better, inl_ref, best_inl),
-            torch.where(better, n_ref, best_score))
+    with span("ransac.refit"):
+        H_ref = _dlt(src, dst, best_inl.to(src.dtype))
+        inl_ref, n_ref = inlier_mask(H_ref, src, dst, valid, t2)
+        better = (n_ref >= best_score) & (best_score >= 4)
+        return (torch.where(better, H_ref, H_best),
+                torch.where(better, inl_ref, best_inl),
+                torch.where(better, n_ref, best_score))
 
 
 def find_homography_ransac(src, dst, valid=None, *, iters: int = 512,
@@ -491,20 +494,24 @@ def find_homography_ransac(src, dst, valid=None, *, iters: int = 512,
     scored together; the best is refitted on its inliers.  Returns
     (H 3x3 f32, inlier mask (N,) bool, n_inliers int32) as tensors on
     `device`.  thresh is the forward-transfer inlier radius in pixels (the
-    cv::findHomography ransacReprojThreshold convention).
+    cv::findHomography ransacReprojThreshold convention).  Spans:
+    `eff/ops.find_homography_ransac` around the call, and inside it
+    `eff/ransac.draw`, `eff/ransac.solve_score` and `eff/ransac.refit`.
     """
-    dev = resolve_device(device)
-    src = torch.as_tensor(src, dtype=torch.float32, device=dev)
-    dst = torch.as_tensor(dst, dtype=torch.float32, device=dev)
-    if src.dim() != 2 or src.shape[1] != 2 or src.shape != dst.shape:
-        raise ValueError("src/dst must both be (N, 2)")
-    if src.shape[0] < 4:
-        raise ValueError("need at least 4 matches")
-    if valid is None:
-        valid = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
-    else:
-        valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    idx = _draw_minimal_sets(valid, iters, gen)
-    return _ransac_from_indices(src, dst, valid, thresh, idx)
+    with span("ops.find_homography_ransac"):
+        dev = resolve_device(device)
+        src = torch.as_tensor(src, dtype=torch.float32, device=dev)
+        dst = torch.as_tensor(dst, dtype=torch.float32, device=dev)
+        if src.dim() != 2 or src.shape[1] != 2 or src.shape != dst.shape:
+            raise ValueError("src/dst must both be (N, 2)")
+        if src.shape[0] < 4:
+            raise ValueError("need at least 4 matches")
+        if valid is None:
+            valid = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+        else:
+            valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+        with span("ransac.draw"):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            idx = _draw_minimal_sets(valid, iters, gen)
+        return _ransac_from_indices(src, dst, valid, thresh, idx)

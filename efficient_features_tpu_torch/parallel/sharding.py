@@ -57,6 +57,7 @@ from ..ops import image as OI
 from ..ops import matcher as OM
 from ..ops import window_kernels as WK
 from ..utils import semantics as S
+from ..utils.profiler import span
 
 # ---------------------------------------------------------------------------
 # The mesh: ranks of the default process group, and their collectives
@@ -195,7 +196,10 @@ def shard_batch(images, mesh: Mesh) -> torch.Tensor:
 
 
 def _batch_loop(images: torch.Tensor, cfg: P.FeatureConfig):
-    frames = [P.detect_and_compute(img, cfg) for img in images.unbind(0)]
+    frames = []
+    for img in images.unbind(0):
+        with span("sharding.frame"):
+            frames.append(P.detect_and_compute(img, cfg))
     slots = {k: torch.stack([s[k] for s, _ in frames]) for k in frames[0][0]}
     return slots, torch.stack([d for _, d in frames])
 

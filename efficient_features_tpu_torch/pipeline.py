@@ -6,6 +6,10 @@ arrays (ORB geometric split); invalid slots are masked; slot order within a
 level is (response desc, index asc).  Everything runs eagerly on the input's
 device, and no route reads anything back: as in the JAX package, a
 `detect_async` / `detect_and_compute_async` call only enqueues work.
+Spans (`utils/profiler.span`, recorded only under a torch profiler):
+`eff/pipeline.pyramid`, then `eff/pipeline.detect_level` and
+`eff/pipeline.describe_level` once a level each, and `eff/pipeline.join`
+around each concatenation of the levels.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from .ops import image as ops_image
 from .ops import detect as ops_detect
 from .ops import detect_kernels as DK
 from .ops import window_kernels as WK
+from .utils.profiler import span
 
 DESCRIPTOR_TYPES = ("bad_256", "bad_512", "hash_sift_256", "hash_sift_512")
 MIN_LEVEL_DIM = 8
@@ -211,23 +216,29 @@ def detect_core(image: torch.Tensor, cfg: FeatureConfig,
     detection at every level."""
     h0, w0 = int(image.shape[0]), int(image.shape[1])
     validate_image_shape(cfg, h0, w0)
-    levels = ops_image.build_pyramid(image, cfg.scale_factor, cfg.nlevels)
+    with span("pipeline.pyramid"):
+        levels = ops_image.build_pyramid(image, cfg.scale_factor,
+                                         cfg.nlevels)
+        masks = (_mask_pyramid(mask, S.pyramid_shapes(
+            h0, w0, cfg.scale_factor, cfg.nlevels))
+            if mask is not None else [None] * cfg.nlevels)
     scales = S.pyramid_scales(cfg.scale_factor, cfg.nlevels)
     quotas = cfg.quotas()
-    masks = (_mask_pyramid(mask, S.pyramid_shapes(h0, w0, cfg.scale_factor,
-                                                 cfg.nlevels))
-             if mask is not None else [None] * cfg.nlevels)
 
     parts = []
     per_level = []
     for s in range(cfg.first_level, cfg.nlevels):
         quota = min(quotas[s], int(np.prod(levels[s].shape)))
-        ys, xs, r, ang, valid = _detect_level(levels[s], quota, cfg,
-                                              masks[s])
-        per_level.append((s, ys, xs, valid, ang))
-        parts.append(dict(_level_slots(s, scales[s], quota, ys, xs, r, ang,
-                                       valid), x_level=xs, y_level=ys))
-    return _join_slots(parts), levels, per_level
+        with span("pipeline.detect_level"):
+            ys, xs, r, ang, valid = _detect_level(levels[s], quota, cfg,
+                                                  masks[s])
+            per_level.append((s, ys, xs, valid, ang))
+            parts.append(dict(_level_slots(s, scales[s], quota, ys, xs, r,
+                                           ang, valid), x_level=xs,
+                              y_level=ys))
+    with span("pipeline.join"):
+        slots = _join_slots(parts)
+    return slots, levels, per_level
 
 
 def _hs_from_fused(desc_u8, valid, nbits: int) -> torch.Tensor:
@@ -289,10 +300,13 @@ def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
         return slots, None
     descs = []
     for (s, ys, xs, valid, ang) in per_level:
-        blurred = ops_image.gaussian_blur7_u8(levels[s])
-        descs.append(_compute_level_descriptors(blurred, ys, xs, ang, valid,
-                                                cfg))
-    return slots, torch.cat(descs, dim=0)
+        with span("pipeline.describe_level"):
+            blurred = ops_image.gaussian_blur7_u8(levels[s])
+            descs.append(_compute_level_descriptors(blurred, ys, xs, ang,
+                                                    valid, cfg))
+    with span("pipeline.join"):
+        descs = torch.cat(descs, dim=0)
+    return slots, descs
 
 
 def detect(image: torch.Tensor, cfg: FeatureConfig,

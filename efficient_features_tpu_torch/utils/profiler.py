@@ -1,6 +1,7 @@
 """Profiling and timing helpers (port of `efficient_features_tpu/utils/
 profiler.py`): wall time per call over queued calls with one final
-completion, `torch.profiler` traces and named ranges.
+completion, `torch.profiler` traces and named ranges, among them the
+program's own spans (`span`).
 
 Imports only torch and the standard library.
 """
@@ -112,11 +113,25 @@ def trace(logdir: str | None = None):
         prof.step()
 
 
-@contextlib.contextmanager
+# The program's own spans are `eff/<layer>.<what>`: `api`, `wait` (the host
+# blocks on the card), `pipeline`, `sharding`, `ops`, `ransac`.
+PREFIX = "eff/"
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
 def annotate(name: str):
-    """A named range in profiler traces (`record_function`), and an NVTX
-    range when a card is present."""
-    nvtx = torch.cuda.nvtx.range(name) if torch.cuda.is_available() \
-        else contextlib.nullcontext()
-    with torch.profiler.record_function(name), nvtx:
-        yield
+    """A named range (`record_function`) while a torch profiler records,
+    and a context that does nothing otherwise: with no profiler running
+    no range is entered, so a span costs the guard alone and the program
+    keeps its spans on the hot path.  Under `torch.compile` the guard is
+    not asked (dynamo cannot trace it) and the range is left out."""
+    if not torch.compiler.is_compiling() and _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def span(what: str):
+    """`annotate` of the program's span `PREFIX + what`."""
+    return annotate(PREFIX + what)
