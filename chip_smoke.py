@@ -122,7 +122,10 @@ launch count set to 0 just before and read just after:
     matches and inlier rates printed beside the CPU port's and
     tools/EVAL.json's.
 Every `detect` / `detect_and_compute` call builds its pyramid through K10:
-7 launches per call, checked in every path above.  `utils.profiler` on the
+7 launches per call, checked in every path above.  One image on the card
+goes through the graph cache (`graphs.py`), whose replays move no wrapper
+counter: the counted paths, and the plain versions, run the core eagerly,
+and the K13 trace below checks a replay's kernels by name.  `utils.profiler` on the
 card: `timeit_ms` within 20% of this script's `time_ms` on one 40000 x
 40000 K6 call, and a `trace` of K1 calls that lists K1's two kernels and
 the `annotate` range around them.
@@ -444,22 +447,34 @@ def tied_responses(resp: torch.Tensor) -> torch.Tensor:
 
 
 def host_syncs(label: str, fn, check: bool = True) -> int:
-    """Host syncs that one call of fn makes (torch's sync debug mode); with
-    `check`, any sync fails the run: the port's paths read nothing back."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-            syncs = [str(w.message) for w in caught
-                     if "synchroniz" in str(w.message)]
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    if check and syncs:
-        fail(f"{label}: {len(syncs)} host syncs in one call, the first: "
-             f"{syncs[0]}")
-    return len(syncs)
+    """Host syncs that one call of fn makes (torch's sync debug mode), the
+    more of two calls: after two unchecked calls (a key's first call runs
+    eagerly and its second captures its graph, `graphs.py`), one that
+    replays, and, with the graph cache cleared, one that runs eagerly.
+    With `check`, any sync fails the run: the port's paths read nothing
+    back."""
+    from efficient_features_tpu_torch import graphs as G
+    fn()
+    fn()
+    counts = []
+    for clear in (False, True):
+        if clear:
+            G.CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+                syncs = [str(w.message) for w in caught
+                         if "synchroniz" in str(w.message)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if check and syncs:
+            fail(f"{label}: {len(syncs)} host syncs in one call, the "
+                 f"first: {syncs[0]}")
+        counts.append(len(syncs))
+    return max(counts)
 
 
 def _work(name: str, args) -> tuple[float, float, float, float, float]:
@@ -723,6 +738,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from efficient_features_tpu_torch import (BAD, EfficientFeatures,
                                               HashSIFT, _build)
+    from efficient_features_tpu_torch import graphs as G
     from efficient_features_tpu_torch import pipeline as P
     from efficient_features_tpu_torch.models.params import (bad_params,
                                                             hash_sift_params)
@@ -807,8 +823,10 @@ def main() -> int:
 
     def plain_kernels():
         """Route the pipeline through the plain versions (this script
-        only: it is the on-card reference)."""
-        return patched([((m, n), ref) for m, n, ref, *_ in kernels])
+        only: it is the on-card reference), eagerly: a captured graph
+        replays the kernels it captured."""
+        return patched([((m, n), ref) for m, n, ref, *_ in kernels]
+                       + [((G.CACHE, "run"), G.run_eager)])
 
     def no_integral():
         """K3 sums its own boxes: on the card path a call of the integral
@@ -825,7 +843,8 @@ def main() -> int:
     def drive(label, fn, expect, forbid=(), detect_calls=1):
         """Run fn with every launch count at 0 before and read after; fail
         if a kernel of `expect` did not launch, one of `forbid` did, or the
-        pyramid's kernel did not launch 7 times per detect call."""
+        pyramid's kernel did not launch 7 times per detect call.  fn runs
+        the core eagerly: a graph's replay (`graphs.py`) calls no wrapper."""
         calls = {n: [] for n in names}
 
         def recording(f, name):
@@ -837,7 +856,8 @@ def main() -> int:
         # a wrapper counts on the function its module name is bound to, so
         # counts are reset and read while the recorders are in place
         with patched([((m, n), recording(getattr(m, n), n))
-                      for m, n, *_ in kernels]):
+                      for m, n, *_ in kernels]
+                      + [((G.CACHE, "run"), G.run_eager)]):
             for m, n, *_ in kernels:
                 getattr(m, n).launches = 0
             out = fn()
@@ -2533,7 +2553,8 @@ def main() -> int:
 
     stamp("K13 on the cells route: its kernels in a trace")
     # -- one cells-route dAC call runs each of K13's three kernels once a
-    # level, and no sort kernel runs anywhere in it
+    # level, and no sort kernel runs anywhere in it; the traced calls are
+    # replays of the key's graph (its first call and capture come first)
     k13_want = {"cells_live_kernel": 8, "cells_bucket_kernel": 8,
                 "cells_place_kernel": 8}
     ef_r15 = EfficientFeatures(nfeatures=NFEATURES,
@@ -2548,7 +2569,12 @@ def main() -> int:
             ("radius 64", lambda: ef_r64.detect_and_compute_async(img)),
             ("equal responses, radius 15",
              lambda: ef_r15.detect_and_compute_async(equal_dev))):
+        fn()
+        fn()
+        replays = G.CACHE.replays
         listed = kernel_names(fn, want=k13_want)
+        if G.CACHE.replays < replays + 2:
+            fail(f"cells-route dAC {label}: the traced calls did not replay")
         got = traced_launches(listed, k13_want)
         sorts = {k: c for k, (c, _) in listed.items() if "sort" in k.lower()}
         if got != k13_want or sorts:
@@ -2556,8 +2582,8 @@ def main() -> int:
                  f"{k13_want}), sort kernels {sorts}")
         k13_ms = {n: sum(t for k, (_, t) in listed.items() if n in k)
                   for n in k13_want}
-        print(f"cells-route dAC {label}: K13 launches {got} (3 a level), no "
-              f"sort kernel; K13 device ms " + ", ".join(
+        print(f"cells-route dAC {label}, replayed: K13 launches {got} (3 a "
+              f"level), no sort kernel; K13 device ms " + ", ".join(
                   f"{n} {t:.4f}" for n, t in k13_ms.items())
               + f" [{hw}]")
     del equal_dev
@@ -3018,6 +3044,8 @@ def main() -> int:
 
     stamp("done")
     print(f"main-path launches (all paths, all runs): {totals}")
+    print(f"graph cache since its last clear: {G.CACHE.eager} eager calls, "
+          f"{G.CACHE.captures} captures, {G.CACHE.replays} replays")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "efficient_features_tpu_torch/csrc/" + source,

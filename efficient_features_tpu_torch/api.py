@@ -10,7 +10,10 @@ The device is explicit: `EfficientFeatures(..., device="cuda")` (and `BAD`,
 `device="cpu"` runs the plain versions of the kernels.  The `_async` methods
 enqueue on the current CUDA stream and return device tensors, with no
 host read on any route (as the JAX package's `_async` calls);
-`KeyPoints.block()` waits for that stream.
+`KeyPoints.block()` waits for that stream.  On a card, `detect*` of one
+image, and each frame of `detect_and_compute_batch` without a mesh, run
+as a replay of a captured CUDA graph from the second call of a shape and
+configuration on (`graphs.py`); the tensors returned are the caller's.
 
 `mesh=` (a `parallel.sharding.Mesh` over `torch.distributed` ranks, made by
 `make_mesh` or `make_mesh_2d`): every rank of the mesh makes the same call
@@ -30,6 +33,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from . import graphs as G
 from . import pipeline as P
 from .utils.profiler import span
 
@@ -126,8 +130,8 @@ class KeyPoints:
             "(static slot count).")
 
 
-def _as_u8_image(image, device: torch.device) -> torch.Tensor:
-    """A 2-D uint8 array or tensor as a contiguous tensor on `device`."""
+def _as_u8_tensor(image) -> torch.Tensor:
+    """A 2-D uint8 array or tensor as a tensor, where it lies."""
     if isinstance(image, torch.Tensor):
         img = image
     else:
@@ -137,13 +141,17 @@ def _as_u8_image(image, device: torch.device) -> torch.Tensor:
         img = torch.from_numpy(np.ascontiguousarray(img))
     if img.dtype != torch.uint8 or img.dim() != 2:
         raise ValueError("image must be a 2-D uint8 (grayscale) array")
-    with span("api.upload"):
-        return img.to(device).contiguous()
+    return img
 
 
-def _as_mask(mask, shape: tuple, device: torch.device) -> torch.Tensor:
+def _as_u8_image(image, device: torch.device) -> torch.Tensor:
+    """A 2-D uint8 array or tensor as a contiguous tensor on `device`."""
+    return G.upload(_as_u8_tensor(image), device)
+
+
+def _mask_tensor(mask, shape: tuple) -> torch.Tensor:
     """Validate a user ROI mask (8-bit, nonzero = search here; a numpy
-    array or a tensor) and return it as a bool tensor on `device`.
+    array or a tensor) and return it as a tensor, where it lies.
     Keypoints are detected only where the mask is nonzero, and masked-out
     corners take no part in the NMS (the CUDA reference accepts the argument
     but ignores it; the JAX package implements it, and so does the port)."""
@@ -152,9 +160,7 @@ def _as_mask(mask, shape: tuple, device: torch.device) -> torch.Tensor:
     if tuple(m.shape) != shape:
         raise ValueError(f"mask shape {tuple(m.shape)} != image shape "
                          f"{shape}")
-    with span("api.upload"):
-        m = m.to(device)
-    return m != 0
+    return m
 
 
 def _keypoints_to_xysa(keypoints) -> np.ndarray:
@@ -330,12 +336,29 @@ class EfficientFeatures:
         return self._device
 
     def _inputs(self, image, mask):
-        """(image, mask or None) as tensors on the detector's device."""
-        img = _as_u8_image(image, self._device)
+        """(image, mask or None) as checked tensors, where they lie."""
+        img = _as_u8_tensor(image)
         P.validate_image_shape(self._cfg, *img.shape)
         if mask is not None:
-            mask = _as_mask(mask, tuple(img.shape), self._device)
+            mask = _mask_tensor(mask, tuple(img.shape))
         return img, mask
+
+    def _run(self, img, mask, mesh, with_descriptors: bool):
+        """(slots, descriptors or None) of one image: on a card through the
+        graph cache (`graphs.py`), on the CPU eagerly, and over a mesh
+        eagerly on its row bands."""
+        dev = self._device
+        if mesh is None and dev.type == "cuda":
+            return G.CACHE.run(img, self._cfg, mask, with_descriptors, dev)
+        img = G.upload(img, dev)
+        mask = None if mask is None else G.upload(mask, dev) != 0
+        if mesh is None:
+            return G.run_eager(img, self._cfg, mask, with_descriptors, dev)
+        from .parallel import sharding as SH
+        G.CACHE.note_eager(dev)
+        out = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
+                                             with_descriptors, mask)
+        return out if with_descriptors else (out, None)
 
     # -- detection ---------------------------------------------------------
 
@@ -351,12 +374,7 @@ class EfficientFeatures:
         raises ValueError."""
         with span("api.detect_async"):
             img, mask = self._inputs(image, mask)
-            if mesh is not None:
-                from .parallel import sharding as SH
-                slots = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
-                                                       mask=mask)
-            else:
-                slots = P.detect(img, self._cfg, mask)
+            slots, _ = self._run(img, mask, mesh, False)
             return self._keypoints(slots, img.shape)
 
     def _keypoints(self, slots: dict, hw) -> KeyPoints:
@@ -398,12 +416,7 @@ class EfficientFeatures:
         band describing the keypoints in its rows."""
         with span("api.detect_and_compute_async"):
             img, mask = self._inputs(image, mask)
-            if mesh is not None:
-                from .parallel import sharding as SH
-                slots, descs = SH.detect_pyramid_rows_sharded(
-                    img, self._cfg, mesh, with_descriptors=True, mask=mask)
-            else:
-                slots, descs = P.detect_and_compute(img, self._cfg, mask)
+            slots, descs = self._run(img, mask, mesh, True)
             return self._keypoints(slots, img.shape), descs
 
     def convert(self, keypoints: KeyPoints):
@@ -434,8 +447,9 @@ class EfficientFeatures:
             if imgs.dim() != 3 or imgs.dtype != torch.uint8:
                 raise ValueError("images must be (B, H, W) uint8")
             P.validate_image_shape(self._cfg, *imgs.shape[1:])
-            with span("api.upload"):
-                imgs = imgs.to(self._device).contiguous()
+            imgs = G.upload(imgs, self._device)
+            if mesh is not None:
+                G.CACHE.note_eager(self._device)
             if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
                 slots, desc = SH.detect_and_compute_batch_2d(imgs, self._cfg,
                                                              mesh)

@@ -34,10 +34,11 @@ from .detect_kernels import require_cuda, stream_of
 # The index and weight tables below depend only on shapes.  They are cached
 # per (shape, device) because each copy of a host array to a GPU waits for
 # the copy to finish: built per call, they cost one host sync apiece.  The
-# cached tensors are only ever read.
+# cached tensors are only ever read, and never dropped: a captured CUDA
+# graph (`graphs.py`) reads them by address on every replay.
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)
 def _resize_tables(dst_n: int, src_n: int, device: torch.device):
     """(i0, i1 int64 indices, w1 int32 weights) of one resize axis."""
     i0, i1, w1 = S.resize_axis_coeffs(dst_n, src_n)
@@ -157,7 +158,7 @@ def _row_taps(h: int, sh: int, band: BandRows | None, device):
     return _band_tables(band, device)
 
 
-@functools.lru_cache(maxsize=512)
+@functools.lru_cache(maxsize=None)
 def _band_tables(band: BandRows, device: torch.device):
     i0, i1, w1 = band_row_taps(band)
     return (torch.from_numpy(i0.astype(np.int64)).to(device),
@@ -165,7 +166,7 @@ def _band_tables(band: BandRows, device: torch.device):
             torch.from_numpy(w1.astype(np.int32)).to(device))
 
 
-@functools.lru_cache(maxsize=512)
+@functools.lru_cache(maxsize=None)
 def _resize_launch(h: int, w: int, sh: int, sw: int, device: torch.device,
                    band: BandRows | None = None
                    ) -> tuple[torch.Tensor, int, int]:
@@ -179,7 +180,7 @@ def _resize_launch(h: int, w: int, sh: int, sw: int, device: torch.device,
     return t, t.data_ptr(), t.data_ptr() + 4 * h
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)
 def _reflect101_pad3(n: int, device: torch.device) -> torch.Tensor:
     """int64 REFLECT_101 source index of positions -3 .. n + 2."""
     idx = S.reflect101_index(np.arange(-3, n + 3), n).astype(np.int64)

@@ -8,7 +8,8 @@ single-device call returns for the whole input.
 
   dp (batch): `detect_and_compute_batch(images, cfg, mesh)`: each rank
       its frames (`shard_batch`), one after the other, then an all-gather.
-      Without a mesh, every frame on the images' device.
+      Without a mesh, every frame on the images' device; on a card, each
+      frame a replay of one captured graph (`graphs.py`).
   keypoints: `compute_sharded`: each rank a slice of the keypoints.
   match: `knn2_match_sharded`: each rank a slice of the queries against
       every train row, and a slice of the train rows for the cross check,
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import graphs as G
 from .. import pipeline as P
 from ..ops import detect as OD
 from ..ops import detect_kernels as DK
@@ -195,13 +197,28 @@ def shard_batch(images, mesh: Mesh) -> torch.Tensor:
     return imgs[r * (b // n):(r + 1) * (b // n)]
 
 
-def _batch_loop(images: torch.Tensor, cfg: P.FeatureConfig):
-    frames = []
-    for img in images.unbind(0):
+def _batch_loop(images: torch.Tensor, cfg: P.FeatureConfig,
+                graphs: bool = False):
+    """Every frame's `P.detect_and_compute`, in (B, ...) results: frame 0's
+    shapes size them, and every later frame is copied straight in.
+    graphs: each frame through the graph cache (`graphs.CACHE`, one key for
+    the batch), else eagerly."""
+    run = G.CACHE.run if graphs else G.run_eager
+    out = None
+    for i, img in enumerate(images.unbind(0)):
         with span("sharding.frame"):
-            frames.append(P.detect_and_compute(img, cfg))
-    slots = {k: torch.stack([s[k] for s, _ in frames]) for k in frames[0][0]}
-    return slots, torch.stack([d for _, d in frames])
+            if out is None:
+                slots, desc = run(img, cfg)
+                out = ({k: v.new_empty((len(images),) + v.shape)
+                        for k, v in slots.items()},
+                       desc.new_empty((len(images),) + desc.shape))
+                for k, v in slots.items():
+                    out[0][k][0].copy_(v)
+                out[1][0].copy_(desc)
+            else:
+                run(img, cfg, out=({k: v[i] for k, v in out[0].items()},
+                                   out[1][i]))
+    return out
 
 
 def _gather_batch(slots: dict, desc: torch.Tensor, mesh: Mesh, k: int):
@@ -221,13 +238,14 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: P.FeatureConfig,
     (B, nslots, bytes).  Frame i holds exactly what `P.detect_and_compute`
     gives for images[i].  Without a mesh the frames run one after the other
     on the images' device (the JAX package maps them over its chip with
-    `lax.map`); with one, each rank runs its frames (B divisible by the
-    mesh size) and every rank gets the whole batch back."""
+    `lax.map`), on a card through the graph cache; with one, each rank
+    runs its frames (B divisible by the mesh size) and every rank gets the
+    whole batch back."""
     if images.dim() != 3 or images.dtype != torch.uint8 or \
             images.shape[0] < 1:
         raise ValueError("images must be (B, H, W) uint8 with B >= 1")
     if mesh is None:
-        return _batch_loop(images, cfg)
+        return _batch_loop(images, cfg, images.is_cuda)
     slots, desc = _batch_loop(shard_batch(images, mesh), cfg)
     return _gather_batch(slots, desc, mesh, 0)
 

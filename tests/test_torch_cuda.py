@@ -992,19 +992,25 @@ def test_ransac_kernels_match_plain(dev, n, m):
 @pytest.mark.cuda
 def test_detect_and_ransac_read_nothing_back(dev):
     """`detect_and_compute_async` at radius 15 (the cells route, a tied
-    block in the image) and `find_homography_ransac` enqueue work only:
-    torch's sync debug mode raises on any host sync."""
+    block in the image), replayed from its graph and run eagerly, and
+    `find_homography_ransac` enqueue work only: torch's sync debug mode
+    raises on any host sync.  The key's first call (the device tables) and
+    its capture come before."""
+    from efficient_features_tpu_torch import graphs as G
     from efficient_features_tpu_torch.ops import ransac as TR
     img = make_test_image(240, 320, seed=3)
     img[100:196, 80:240] = tie_image()
     img = torch.from_numpy(img).to(dev)
     ef = EfficientFeatures(nfeatures=2000, device="cuda")
+    G.CACHE.clear()
     kps, _ = ef.detect_and_compute_async(img)
+    ef.detect_and_compute_async(img)
     xy = torch.stack([kps._slots["x"], kps._slots["y"]], dim=1)
     ok = kps._slots["valid"]
     want = TR.find_homography_ransac(xy, xy + 2.0, ok, iters=64,
                                      device="cuda")
     torch.cuda.synchronize()
+    replays = G.CACHE.replays
     torch.cuda.set_sync_debug_mode("error")
     try:
         ef.detect_and_compute_async(img)
@@ -1012,7 +1018,15 @@ def test_detect_and_ransac_read_nothing_back(dev):
                                         device="cuda")
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert G.CACHE.replays == replays + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    G.CACHE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ef.detect_and_compute_async(img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (G.CACHE.eager, G.CACHE.captures) == (1, 0)
 
 
 def grid_maps(h, w, mask=None):
