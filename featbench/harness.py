@@ -112,14 +112,17 @@ def forbidden_modules() -> list:
 
 
 def detector_cfg(config: dict) -> dict:
+    """The detector's settings: `EfficientFeatures`' arguments and the
+    reference's `cfg`."""
     d = config["detector"]
     return {k: d[k] for k in ("nfeatures", "scale_factor", "nlevels",
                               "first_level", "fast_threshold",
-                              "nonmax_radius")}
+                              "nonmax_radius", "descriptor_type")}
 
 
 def reference_frames(frames, indices, config, device, lowp=None) -> dict:
-    """The reference's keypoints and descriptors of the pool frames named."""
+    """The reference's keypoints and descriptors of the pool frames named,
+    with the configuration's descriptor type."""
     cfg = detector_cfg(config)
     out = {}
     for i in sorted(set(indices)):
@@ -181,10 +184,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                                 traffic["pool"], traffic["rotate_deg"],
                                 traffic["shift_px"], device)
     marks.append(("frames", time.perf_counter()))
-    det = conf["detector"]
-    feat = api.EfficientFeatures(**detector_cfg(conf),
-                                 descriptor_type=det["descriptor_type"],
-                                 device=device)
+    feat = api.EfficientFeatures(**detector_cfg(conf), device=device)
     loop = Loop(feat, frames, traffic)
 
     def sync():

@@ -16,12 +16,17 @@ def as_port(arrays: dict, desc) -> dict:
     return out
 
 
+def descriptor(config: dict) -> tuple[str, int]:
+    """(kind, bits) of the configuration's descriptor_type."""
+    kind, bits = config["detector"]["descriptor_type"].rsplit("_", 1)
+    return kind, int(bits)
+
+
 def frame_stages(ref_frame: dict, config: dict) -> dict:
     """The roofline's stages of detecting and describing one frame."""
-    det = config["detector"]
-    nbits = int(det["descriptor_type"].rsplit("_", 1)[1])
-    return ST.detect_describe(ref_frame, RS.disc_pixels(det["nonmax_radius"]),
-                              len(RS.ic_offsets()[0]), nbits)
+    return ST.detect_describe(
+        ref_frame, RS.disc_pixels(config["detector"]["nonmax_radius"]),
+        len(RS.ic_offsets()[0]), *descriptor(config))
 
 
 class FrameLoop:

@@ -16,7 +16,7 @@ import torch
 from efficient_features_tpu_torch.ops import matcher, ransac
 from featbench import check as C
 from featbench import frames as FR
-from featbench.loops.base import as_port, frame_stages
+from featbench.loops.base import as_port, descriptor, frame_stages
 from featbench.reference import geometry as G
 from featbench.reference import matching as RM
 from featbench.roofline import stages as ST
@@ -136,10 +136,9 @@ class Loop:
         against the previous frame and RANSAC over the reference's matches
         (counted by `readings`)."""
         pi, ci = item["prev"][0], item["cur"][0]
-        nbits = int(config["detector"]["descriptor_type"].rsplit("_", 1)[1])
         stages = frame_stages(ref[ci], config)
         stages.update(ST.match_verify(
-            len(ref[pi]["x"]), len(ref[ci]["x"]), nbits,
+            len(ref[pi]["x"]), len(ref[ci]["x"]), descriptor(config)[1],
             item["ref_matches"], traffic["step"]["ransac_iters"]))
         return stages
 

@@ -327,9 +327,7 @@ def trace_cell(workload: str, seed: int, steps: int, device: str = "cuda",
     frames, _ = FR.make_pool(fr["height"], fr["width"], seed,
                              traffic["pool"], traffic["rotate_deg"],
                              traffic["shift_px"], device)
-    feat = api.EfficientFeatures(
-        **H.detector_cfg(conf),
-        descriptor_type=conf["detector"]["descriptor_type"], device=device)
+    feat = api.EfficientFeatures(**H.detector_cfg(conf), device=device)
     loop = H.loop_class(traffic["loop"], root)(feat, frames, traffic)
 
     def sync():

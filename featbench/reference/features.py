@@ -1,5 +1,6 @@
 """Plain PyTorch reference of multi-scale FAST + Harris detection and the
-BAD descriptor, written from the detector's documented semantics.
+BAD and HashSIFT descriptors, written from the detector's documented
+semantics.
 
 It runs on any torch device, one frame at a time, with no kernel of the
 program and nothing that the program made: the benchmark hands it the raw
@@ -7,15 +8,17 @@ frame.  Every step that feeds keypoint selection is exact integer
 arithmetic or exact float32 products (resize and blur in fixed point,
 FAST, the Harris response with 12- and 11-bit significands and k = 3/64,
 the NMS disc in which ties co-survive, top-k by (response desc, flat index
-asc)).  Angles and descriptors are float32: atan2 of integer moments, and
-BAD's division-free box compare.
+asc)).  Angles and descriptors are float32: atan2 of integer moments,
+BAD's division-free box compare, and HashSIFT (`hash_sift.py`).
 
 `lowp`: compute the float steps (the Harris response, the angle, BAD's
-affine map and compare) in that dtype, bfloat16 for the benchmark's
-control; the integer steps and the coordinates stay exact.
+affine map and compare, HashSIFT's warp, histogram, normalisation and
+projection) in that dtype, bfloat16 for the benchmark's control; the
+integer steps and the coordinates stay exact.
 """
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
 
@@ -23,20 +26,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import hash_sift as HS
+from . import patch as P
 from . import semantics as S
 
 NEG_INF = float("-inf")
-DEG2RAD = float(np.float32(0.017453292519943295))
 BAD_MARGIN = 1.75
 _TWO_PI = float(np.float32(2 * np.pi))
 _RAD2DEG = float(np.float32(180.0 / np.pi))
-_BAD_TABLE = Path(__file__).resolve().parent / "bad_p256.json"
+_HERE = Path(__file__).resolve().parent
+DESCRIPTOR_TYPES = ("bad_256", "bad_512", "hash_sift_256", "hash_sift_512")
 
 
-def bad_table(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """BAD-256's (256, 5) int32 box pairs [x1, x2, y1, y2, radius] and
-    (256,) float32 thresholds."""
-    data = json.loads(_BAD_TABLE.read_text())
+def bad_table(nbits: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """BAD's (nbits, 5) int32 box pairs [x1, x2, y1, y2, radius] and
+    (nbits,) float32 thresholds."""
+    if nbits not in (256, 512):
+        raise ValueError(f"BAD has 256 or 512 bits, got {nbits}")
+    data = json.loads((_HERE / f"bad_p{nbits}.json").read_text())
     return (torch.tensor(data["box_pairs"], dtype=torch.int32, device=device),
             torch.tensor(data["thresholds"], dtype=torch.float32,
                          device=device))
@@ -217,17 +224,10 @@ def integral_i32(img: torch.Tensor) -> torch.Tensor:
     return (out & 0xFFFFFFFF).to(torch.int32)
 
 
-def _pack_msb(bits: torch.Tensor) -> torch.Tensor:
-    n, nbits = bits.shape
-    wts = torch.tensor([1 << (7 - i) for i in range(8)], dtype=torch.int32,
-                       device=bits.device)
-    return (bits.reshape(n, nbits // 8, 8).to(torch.int32) * wts).sum(
-        2).to(torch.uint8)
-
-
-def bad256(image: torch.Tensor, x, y, size, angle, lowp=None) -> torch.Tensor:
-    """(N, 32) uint8 BAD-256 descriptors of keypoints (x, y, size, angle in
-    degrees; angle < 0: no rotation) on `image`, scale factor 1.
+def bad(image: torch.Tensor, x, y, size, angle, nbits: int,
+        lowp=None) -> torch.Tensor:
+    """(N, nbits // 8) uint8 BAD descriptors of keypoints (x, y, size,
+    angle in degrees; angle < 0: no rotation) on `image`, scale factor 1.
 
     The affine map of the patch's 32 x 32 frame, box centres rounded by
     trunc(v + 0.5), box sums from the integral image; a bit is
@@ -235,7 +235,7 @@ def bad256(image: torch.Tensor, x, y, size, angle, lowp=None) -> torch.Tensor:
     border on clamped boxes by s1 a2 - s2 a1 <= th a1 a2 (exact int64
     products while a1 a2 < 2^22, else 12-bit significands), inside by the
     unnormalised difference against th * side^2."""
-    boxes, th = bad_table(image.device)
+    boxes, th = bad_table(nbits, image.device)
     ii = integral_i32(image)
     fh, fw = ii.shape
     img_h, img_w = fh - 1, fw - 1
@@ -244,15 +244,7 @@ def bad256(image: torch.Tensor, x, y, size, angle, lowp=None) -> torch.Tensor:
     th = th.to(dt)[None, :]
     bx1, bx2, by1, by2, br = (boxes[:, i].to(dt)[None, :] for i in range(5))
 
-    s = 1.0 * size / 32.0
-    theta = angle * DEG2RAD
-    has = angle >= 0
-    cost = torch.where(has, torch.cos(theta), torch.ones_like(theta))
-    sint = torch.where(has, torch.sin(theta), torch.zeros_like(theta))
-    m00, m01 = s * cost, -s * sint
-    m02 = (-s * cost + s * sint) * 16.0 + x
-    m10, m11 = s * sint, s * cost
-    m12 = (-s * sint - s * cost) * 16.0 + y
+    m00, m01, m02, m10, m11, m12, s = P.affine(x, y, size, angle)
 
     def rnd(v):
         return torch.trunc(v + 0.5).to(torch.int64)
@@ -301,20 +293,35 @@ def bad256(image: torch.Tensor, x, y, size, angle, lowp=None) -> torch.Tensor:
     bw = 32.0 * sb * BAD_MARGIN
     in_border = (x < bw) | (x + bw >= float(img_w)) | (y < bw) | \
         (y + bw >= float(img_h))
-    return _pack_msb(torch.where(in_border, bit_border, bit_fast))
+    return P.pack_msb(torch.where(in_border, bit_border, bit_fast))
+
+
+def describer(descriptor_type: str):
+    """describe(image, x, y, size, angle, lowp=None) of one of
+    `DESCRIPTOR_TYPES`."""
+    if descriptor_type not in DESCRIPTOR_TYPES:
+        raise ValueError(f"descriptor_type must be one of "
+                         f"{DESCRIPTOR_TYPES}, got {descriptor_type!r}")
+    kind, bits = descriptor_type.rsplit("_", 1)
+    return functools.partial(bad if kind == "bad" else HS.hash_sift,
+                             nbits=int(bits))
 
 
 def detect_and_describe(image: torch.Tensor, cfg: dict, lowp=None) -> dict:
-    """Keypoints and BAD-256 descriptors of one u8 frame under the detector
+    """Keypoints and descriptors of one u8 frame under the detector
     settings `cfg` (nfeatures, scale_factor, nlevels, first_level,
-    fast_threshold, nonmax_radius).
+    fast_threshold, nonmax_radius, descriptor_type: one of
+    `DESCRIPTOR_TYPES`, BAD-256 if absent).  Both descriptors sample the
+    level blurred by the 7 x 7 Gaussian, at keypoints (x, y, size 31,
+    angle) in level coordinates.
 
     Returns host numpy arrays in level-major order, each level's keypoints
     by (response desc, index asc): x, y (image coordinates, trunc(scale * v
-    + 0.5)), response, angle, octave, desc (N, 32), and the per-level
-    counts that the roofline reads: pixels, searched (the pixels of levels
-    large enough to search), corners (FAST corners inside the 15 px
-    border), survivors (after the NMS) and kept (slots filled)."""
+    + 0.5)), response, angle, octave, desc (N, nbits / 8), and the
+    per-level counts that the roofline reads: pixels, searched (the pixels
+    of levels large enough to search), corners (FAST corners inside the 15
+    px border), survivors (after the NMS) and kept (slots filled)."""
+    describe = describer(cfg.get("descriptor_type", "bad_256"))
     sf, nl = cfg["scale_factor"], cfg["nlevels"]
     levels = build_pyramid(image, sf, nl)
     scales = S.pyramid_scales(sf, nl)
@@ -339,10 +346,10 @@ def detect_and_describe(image: torch.Tensor, cfg: dict, lowp=None) -> dict:
         surv = nms_survivors(resp, corner, cfg["nonmax_radius"])
         ys, xs, r = select_topk(resp, surv, min(quotas[s], h * w))
         ang = ic_angles(img, ys, xs, lowp)
-        desc = bad256(gaussian_blur7_u8(img), xs.to(torch.float32),
-                      ys.to(torch.float32),
-                      torch.full(xs.shape, float(S.PATCH_SIZE),
-                                 device=img.device), ang, lowp)
+        desc = describe(gaussian_blur7_u8(img), xs.to(torch.float32),
+                        ys.to(torch.float32),
+                        torch.full(xs.shape, float(S.PATCH_SIZE),
+                                   device=img.device), ang, lowp=lowp)
         sc = float(scales[s])
         out["x"].append(torch.trunc(sc * xs.to(torch.float32) + 0.5))
         out["y"].append(torch.trunc(sc * ys.to(torch.float32) + 0.5))

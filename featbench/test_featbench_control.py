@@ -16,7 +16,8 @@ def root(tmp_path_factory):
     return tiny_root(tmp_path_factory.mktemp("bench"), checked=2)
 
 
-@pytest.mark.parametrize("cell", ["tiny.single", "tiny.sequence"])
+@pytest.mark.parametrize("cell", ["tiny.single", "tiny.sequence",
+                                  "tiny_hs.single"])
 def test_control_fails_and_reference_passes(root, cell):
     limits = harness.load_cell(cell, root).traffic["check"]["limits"]
     seed = 2 ** 31 + 3

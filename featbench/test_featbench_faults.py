@@ -40,7 +40,7 @@ def stale(fn):
 
 
 @pytest.mark.parametrize("cell", ["tiny.single", "tiny.batch",
-                                  "tiny.sequence"])
+                                  "tiny.sequence", "tiny_hs.single"])
 def test_sound_program_is_correct(root, cell):
     r = run(root, cell)
     assert r["correct"], r["checks"]
@@ -59,6 +59,17 @@ def _flip_desc(fn):
         kps, desc = fn(*a, **kw)
         desc = desc.copy()
         desc[len(desc) // 2, 0] ^= 0x10
+        return kps, desc
+    return wrapped
+
+
+def _flip_desc_rows(fn):
+    """A bit of every 32nd descriptor flipped: 1 byte in 1024, above
+    HashSIFT's budget of 1e-4 at any frame size."""
+    def wrapped(*a, **kw):
+        kps, desc = fn(*a, **kw)
+        desc = desc.copy()
+        desc[::32, 0] ^= 0x10
         return kps, desc
     return wrapped
 
@@ -106,6 +117,8 @@ FAULTS = {
                                   "detect_and_compute", _flip_desc),
     "single-keypoint-altered": ("tiny.single", "kps", "as_arrays",
                                 _shift_kp),
+    "hash-sift-descriptors-altered": ("tiny_hs.single", "api",
+                                      "detect_and_compute", _flip_desc_rows),
     "batch-state-unchanged": ("tiny.batch", "api",
                               "detect_and_compute_batch", stale),
     "batch-half-left-out": ("tiny.batch", "api", "detect_and_compute_batch",

@@ -29,6 +29,8 @@ def test_harness_and_program_load_no_jax():
 
 def test_reference_loads_nothing_of_the_program():
     tops = loaded("import featbench.reference.features, "
+                  "featbench.reference.hash_sift, "
+                  "featbench.reference.patch, "
                   "featbench.reference.matching, "
                   "featbench.reference.geometry, featbench.check, "
                   "featbench.frames, featbench.roofline.stages")

@@ -11,7 +11,8 @@ COUNTS = {"pixels": [100, 64], "searched": [100, 64], "corners": [10, 4],
 
 
 def test_detect_describe_counts_by_hand():
-    st = ST.detect_describe(COUNTS, disc_pixels=697, ic_pixels=749, nbits=256)
+    st = ST.detect_describe(COUNTS, disc_pixels=697, ic_pixels=749,
+                            kind="bad", nbits=256)
     assert st["pyramid"].bytes == 100 and st["pyramid"].f32 == 11 * 64
     assert st["detect"].f32 == 48 * 164 + 14 * (294 + 697)
     assert st["select"].f32 == 8 + 4 * 7
@@ -19,6 +20,32 @@ def test_detect_describe_counts_by_hand():
     assert st["blur"].f32 == 30 * 164
     assert st["describe"].f32 == 2 * 164 + 9 * 256 * 7
     assert st["describe"].bytes == 7 * (25 + 32)
+
+
+# per keypoint: a warp of 26 ops a sample, 33 a pixel of the interior,
+# 1570 to fold, normalise and quantise, and the projection
+HS_256 = 26 * 1024 + 33 * 900 + 1570 + 2 * 129 * 256
+HS_512 = 26 * 1024 + 33 * 900 + 1570 + 2 * 129 * 512
+
+
+@pytest.mark.parametrize("kind,nbits,describe", [
+    ("bad", 512, 2 * 164 + 9 * 512 * 7),
+    ("hash_sift", 256, 7 * HS_256),
+    ("hash_sift", 512, 7 * HS_512)])
+def test_describe_counts_by_descriptor(kind, nbits, describe):
+    """Only the describe stage depends on the descriptor; HashSIFT is
+    charged no integral image."""
+    st = ST.detect_describe(COUNTS, 697, 749, kind, nbits)
+    bad = ST.detect_describe(COUNTS, 697, 749, "bad", 256)
+    assert st["describe"].f32 == describe
+    assert st["describe"].bytes == 7 * (25 + nbits // 8)
+    assert {k: v for k, v in st.items() if k != "describe"} == \
+        {k: v for k, v in bad.items() if k != "describe"}
+
+
+def test_unknown_descriptor_kind_raises():
+    with pytest.raises(ValueError):
+        ST.detect_describe(COUNTS, 697, 749, "orb", 256)
 
 
 def test_match_verify_counts_by_hand():
@@ -37,7 +64,7 @@ def test_semantics_sizes():
 def test_bound_is_the_slowest_resource_and_caps_the_share():
     w = ST.Work(bytes=3.35e9, f32=67e12 * 2e-3)
     assert w.ms() == pytest.approx(2.0)          # float32 ops bound it
-    st = ST.detect_describe(COUNTS, 697, 749, 256)
+    st = ST.detect_describe(COUNTS, 697, 749, "bad", 256)
     b = ST.bound_ms(st)
     assert ST.share_pct(b, b) == pytest.approx(100.0)
     assert ST.share_pct(b, 2 * b) == pytest.approx(50.0)
@@ -59,7 +86,7 @@ def test_counts_of_a_small_frame_by_hand():
     assert counts["searched"] == [6144, 1536, 0]
     assert counts["corners"] == counts["survivors"] == counts["kept"] \
         == [0, 0, 0]
-    st = ST.detect_describe(counts, 697, 749, 256)
+    st = ST.detect_describe(counts, 697, 749, "bad", 256)
     assert st["pyramid"].bytes == 6144
     assert st["pyramid"].f32 == 11 * (1536 + 384)
     assert st["detect"].f32 == 48 * 7680
