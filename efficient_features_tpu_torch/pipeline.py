@@ -9,7 +9,10 @@ device, and no route reads anything back: as in the JAX package, a
 Spans (`utils/profiler.span`, recorded only under a torch profiler):
 `eff/pipeline.pyramid`, then `eff/pipeline.detect_level` and
 `eff/pipeline.describe_level` once a level each, and `eff/pipeline.join`
-around each concatenation of the levels.
+around each concatenation of the levels.  HashSIFT's steps open
+`eff/hash_sift.warp` (K4) and `eff/hash_sift.hist` (K5), or
+`eff/hash_sift.fused` (K11), then `eff/hash_sift.project`, once a call of
+`_compute_descriptors`: a level's, or a `compute()`'s.
 """
 from __future__ import annotations
 
@@ -267,13 +270,17 @@ def _compute_descriptors(image, x, y, size, ang, valid, kind: str,
     if kind != "hash_sift":
         raise ValueError(f"kind must be 'bad' or 'hash_sift', got {kind!r}")
     if hs_fused:
-        rows = WK.hs_desc_windows(image, x, y, size, ang, valid, scale,
-                                  **band)
+        with span("hash_sift.fused"):
+            rows = WK.hs_desc_windows(image, x, y, size, ang, valid, scale,
+                                      **band)
     else:
-        rows = WK.hs_hist_from_patches(
-            WK.warp_patches_windows(image, x, y, size, ang, valid, scale,
-                                    **band))
-    return _hs_from_fused(rows, valid, nbits)
+        with span("hash_sift.warp"):
+            patches = WK.warp_patches_windows(image, x, y, size, ang, valid,
+                                              scale, **band)
+        with span("hash_sift.hist"):
+            rows = WK.hs_hist_from_patches(patches)
+    with span("hash_sift.project"):
+        return _hs_from_fused(rows, valid, nbits)
 
 
 def _compute_level_descriptors(blurred, ys, xs, ang, valid,

@@ -114,7 +114,7 @@ def trace(logdir: str | None = None):
 
 
 # The program's own spans are `eff/<layer>.<what>`: `api`, `wait` (the host
-# blocks on the card), `pipeline`, `sharding`, `ops`, `ransac`.
+# blocks on the card), `pipeline`, `sharding`, `ops`, `ransac`, `hash_sift`.
 PREFIX = "eff/"
 
 _OFF = contextlib.nullcontext()
