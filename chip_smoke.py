@@ -48,7 +48,11 @@ zero row), K10 the pyramid's resize (bit-exact on the 7 levels under
 all start one byte past a 16-byte boundary, 3x and 4x downscales whose
 tiles read the image directly, an upscale, 16x20 and 8x8 destinations,
 noise and all-255; the kernel-only time of each 4K level beside its
-bound), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
+bound), K14 the descriptors' 7x7 blur (bit-exact on the 8 levels of the
+2160x3840 and 1241x376 pyramids, scene and noise, all-0 and all-255, hard
+edges, a ragged crop, 4x5 to 300x7, a source that starts unaligned; the
+kernel-only time of the 8 levels beside their bound and the plain
+version's), K11 fused HashSIFT (the bytes of K5 on K4's patches, and
 both within K5's tolerance of their plain versions, on detected keypoints,
 on sizes 31-300 px, on the image corners, on a saturated 0/255 edge image,
 and at the edges of the two kernels' 8-patch blocks: n = 1, one off a
@@ -122,7 +126,9 @@ launch count set to 0 just before and read just after:
     matches and inlier rates printed beside the CPU port's and
     tools/EVAL.json's.
 Every `detect` / `detect_and_compute` call builds its pyramid through K10:
-7 launches per call, checked in every path above.  One image on the card
+7 launches per call, checked in every path above; every
+`detect_and_compute` call blurs its 8 levels through K14, 8 launches, and
+`detect` and `compute` none.  One image on the card
 goes through the graph cache (`graphs.py`), whose replays move no wrapper
 counter: the counted paths, and the plain versions, run the core eagerly,
 and the K13 trace below checks a replay's kernels by name.  `utils.profiler` on the
@@ -434,6 +440,32 @@ def launch_ms(fn, name: str, reps: int = 10) -> list[float]:
     fail(f"{len(events)} launches of {name} traced in {reps} calls")
 
 
+def replay_ms(fn, name: str, reps: int = 10) -> tuple[float, list | None]:
+    """fn's launches captured in one CUDA graph, as the core's graph holds
+    them: (ms of one replay, by CUDA events over 100 replays; the device ms
+    of each launch of the kernels whose name holds `name`, averaged over
+    `reps` replays in a profiler trace, or None where the trace lost a
+    record)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, iters=100)
+    prof = profiled(graph.replay, reps, cpu=False)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and name in e.name), key=lambda e: e.time_range.start)
+    if not events or len(events) % reps:
+        return ms, None
+    us = np.array([e.time_range.elapsed_us() for e in events], np.float64)
+    return ms, (us.reshape(reps, -1).mean(axis=0) / 1e3).tolist()
+
+
 def tied_responses(resp: torch.Tensor) -> torch.Tensor:
     """`resp` (-inf where there is no corner) with its corners' responses
     quantised to three levels, 1, 2 and 3 by tercile: a map of heavily tied
@@ -517,6 +549,9 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
       K10 source and destination pixels once and the two packed uint32
           tables, 4 B a destination row and column; per destination pixel
           6 multiplies, 3 adds, the rounding add and the shift (11);
+      K14 each pixel read and written once; per pixel and pass 3 pair
+          adds, 4 multiplies, 3 adds, the rounding add and the shift (24:
+          the taps are symmetric);
       K11 the image once, 17 B of keypoint per slot, the 128 B row and
           the plan once; per valid slot K4's affine and lerp per sample,
           and K5's work for each patch that is not all zero (an invalid
@@ -581,6 +616,9 @@ def _work(name: str, args) -> tuple[float, float, float, float, float]:
         src, (h, w) = args[:2]
         return (src.numel() + h * w + 4 * (h + w), 11.0 * h * w, 0.0, 0.0,
                 0.0)
+    if name == "gaussian_blur7_u8_kernel":
+        n = args[0].numel()
+        return 2 * n, 24.0 * n, 0.0, 0.0, 0.0
     if name == "hs_desc_windows":
         from efficient_features_tpu_torch.ops import window_kernels as WK
         img, n = args[0], args[1].shape[0]
@@ -694,6 +732,7 @@ def noisy_copies(rng, d2: np.ndarray, n: int, p: float) -> np.ndarray:
 
 # The kernel wrappers whose launches a mesh call of phase (b) reports.
 MESH_WRAPPERS = (("ops.image", "resize_u8_kernel"),
+                 ("ops.image", "gaussian_blur7_u8_kernel"),
                  ("ops.detect_kernels", "fast_harris"),
                  ("ops.detect_kernels", "radius_nms"),
                  ("ops.detect_kernels", "fast_harris_nms_cells"),
@@ -788,6 +827,9 @@ def main() -> int:
         (I, "resize_u8_kernel", I.resize_u8, "resize_u8.cu",
          f"{tpu}image.py:115 (_resize_kernel, launched by resize_u8_pallas "
          f"{tpu}image.py:173)"),
+        (I, "gaussian_blur7_u8_kernel", I.gaussian_blur7_u8, "blur7_u8.cu",
+         f"no TPU kernel: {tpu}image.py gaussian_blur7_u8 is XLA ops; K14 "
+         "stands for the port's torch form of it, ops/image.gaussian_blur7_u8"),
         (WK, "hs_desc_windows", WK.hs_desc_windows_ref, "hs_desc.cu",
          f"{tpu}window_kernels.py:1358 (_hs_fused_kernel, launched by "
          f"_hs_desc_windows_impl {tpu}window_kernels.py:1565)"),
@@ -815,6 +857,7 @@ def main() -> int:
                       "inlier_mask", "smallest_eigvec9"]
     names = [n for _, n, *_ in kernels]
     pyramid_kernels = ["resize_u8_kernel"]     # every detect call: 7 launches
+    blur_kernels = ["gaussian_blur7_u8_kernel"]     # every dAC call: 8
     detect_kernels = pyramid_kernels + ["fast_harris_nms_cells",
                                         "select_cells", "ic_angles_windows"]
     desc_kernels = {"bad": ["bad_descriptors_windows"],
@@ -842,9 +885,11 @@ def main() -> int:
 
     def drive(label, fn, expect, forbid=(), detect_calls=1):
         """Run fn with every launch count at 0 before and read after; fail
-        if a kernel of `expect` did not launch, one of `forbid` did, or the
-        pyramid's kernel did not launch 7 times per detect call.  fn runs
-        the core eagerly: a graph's replay (`graphs.py`) calls no wrapper."""
+        if a kernel of `expect` did not launch, one of `forbid` did, the
+        pyramid's kernel did not launch 7 times per detect call, or the blur
+        did not launch 8 times per detect call where `expect` holds it (a
+        detect_and_compute call) and 0 times where not.  fn runs the core
+        eagerly: a graph's replay (`graphs.py`) calls no wrapper."""
         calls = {n: [] for n in names}
 
         def recording(f, name):
@@ -873,6 +918,11 @@ def main() -> int:
                 counts["resize_u8_kernel"] != 7 * detect_calls:
             fail(f"{label}: {counts['resize_u8_kernel']} K10 launches, "
                  f"expected 7 for each of {detect_calls} detect calls")
+        blurs = 8 * detect_calls if blur_kernels[0] in expect else 0
+        if counts[blur_kernels[0]] != blurs:
+            fail(f"{label}: {counts[blur_kernels[0]]} K14 launches, expected "
+                 f"{blurs} (8 for each detect_and_compute call, none for "
+                 "detect and compute)")
         for n, c in counts.items():
             totals[n] += c
             if c and n not in recorded:
@@ -909,7 +959,7 @@ def main() -> int:
     rng = np.random.default_rng(40000)
     errs = dict.fromkeys(names, 0.0)
 
-    stamp("kernels built; K1, K7, K8, K9, K10 against plain")
+    stamp("kernels built; K1, K7, K8, K9, K10, K14 against plain")
     def check_same(label, name, got, want):
         """Bit-identical outputs of a kernel and its plain version."""
         torch.cuda.synchronize()
@@ -1118,6 +1168,62 @@ def main() -> int:
           f"downscales, on the upscale {tuple(level.shape)} -> {shapes[4]} "
           "and on 16x20 and 8x8 destinations")
     del white, level, flat, shifted
+
+    # -- K14: the descriptors' blur vs plain, bit-exact ------------------------
+    def check_blur(label, src):
+        got = I.gaussian_blur7_u8_kernel(src)
+        check_same(f"K14 {label} {tuple(src.shape)}",
+                   "gaussian_blur7_u8_kernel", got, I.gaussian_blur7_u8(src))
+        return got
+
+    for label, (fh, fw) in (("4K", (H, W)), ("KITTI", (376, 1241))):
+        frame = (img if (fh, fw) == (H, W) else torch.from_numpy(
+            make_test_image(fh, fw, seed=376)).to(dev))
+        lvls = I.build_pyramid(frame, 1.2, 8)
+        for lv in lvls:
+            check_blur(f"{label} level", lv)
+            check_blur(f"{label} noise level", torch.from_numpy(
+                mask_rng.integers(0, 256, tuple(lv.shape),
+                                  dtype=np.uint8)).to(dev))
+        k14_replay, k14_ms = replay_ms(
+            lambda: [I.gaussian_blur7_u8_kernel(lv) for lv in lvls],
+            "blur7_u8_kernel")
+        k14_bound = [bound("gaussian_blur7_u8_kernel", [((lv,), {})])
+                     for lv in lvls]
+        k14_plain = time_ms(lambda: [I.gaussian_blur7_u8(lv) for lv in lvls],
+                            iters=5)
+        only = ("a record lost" if k14_ms is None else f"{sum(k14_ms):.4f} "
+                "ms (" + " ".join(f"{t:.4f}" for t in k14_ms) + ")")
+        print(f"time K14, the 8 levels of the {fh}x{fw} pyramid as one graph "
+              f"replay: {k14_replay:.4f} ms, kernel only {only}, bound "
+              f"{sum(b for b, _ in k14_bound):.4f} ms by "
+              f"{k14_bound[0][1]} (" + " ".join(f"{b:.4f}" for b, _ in
+                                                 k14_bound)
+              + f"); plain {k14_plain:.3f} ms [{hw}]")
+        del lvls, frame
+    edges = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    edges[:, W // 2:] = 255
+    edges[H // 3:H // 2, :W // 3] = 255
+    edges[::5, 1::7] ^= 255
+    for label, src in (("all-0", torch.zeros((H, W), dtype=torch.uint8,
+                                             device=dev)),
+                       ("all-255", torch.full((H, W), 255, dtype=torch.uint8,
+                                              device=dev)),
+                       ("hard edges", edges), ("odd crop", crop)):
+        got = check_blur(label, src)
+        if label.startswith("all-") and not bool((got == src).all()):
+            fail(f"K14: an {label} image did not stay {label[4:]}")
+    for hw_ in ((4, 5), (5, 4), (7, 300), (300, 7), (97, 333)):
+        check_blur("small", noise[:hw_[0], :hw_[1]].contiguous())
+    flat = torch.empty(H * W + 16, dtype=torch.uint8, device=dev)
+    shifted = flat[3:3 + H * W].view(H, W)
+    shifted.copy_(noise)
+    check_blur("source rows from 3 mod 16", shifted)
+    print(f"K14: bit-exact on the 8 pyramid levels of {H}x{W} and 376x1241 "
+          f"(scene and noise), on all-0 and all-255 (both stay), hard edges, "
+          f"a {H - 1}x{W - 3} crop, 4x5 to 300x7 and a source that starts 3 "
+          "bytes past a 16-byte boundary")
+    del edges, flat, shifted
 
     # -- K1 with its ROI mask vs plain, bit-exact -----------------------------
 
@@ -1892,7 +1998,7 @@ def main() -> int:
             (kps, desc), counts = drive(
                 f"detect_and_compute {dtype}",
                 lambda: ef.detect_and_compute_async(scene),
-                detect_kernels + desc_kernels[kind])
+                detect_kernels + blur_kernels + desc_kernels[kind])
         n = kps.count
         slots = kps._slots
         if not (0 < n <= NFEATURES) or desc.shape != (kps.capacity,
@@ -2006,7 +2112,7 @@ def main() -> int:
 
     stamp("main paths 3 and 4: sequence, two-image")
     # -- main path 3: the image-sequence step, through the kernels ----------
-    match_kernels = (detect_kernels + desc_kernels["hash_sift"]
+    match_kernels = (detect_kernels + blur_kernels + desc_kernels["hash_sift"]
                      + ["knn2_topk2"])
     base = SC.tiled_scene(H, W, seed=2160, distinct=True)
     ty_rng = np.random.default_rng(0)          # as the sample's frame_iter
@@ -2091,7 +2197,7 @@ def main() -> int:
                 label, lambda: ef.detect_and_compute_async(scene,
                                                            mask=m_host),
                 pyramid_kernels + ["ic_angles_windows"] + route
-                + desc_kernels[kind],
+                + blur_kernels + desc_kernels[kind],
                 forbid=[k for k in detect_routes if k not in route])
             if any(counts[k] != ef.get_n_levels() for k in route):
                 fail(f"{label}: {counts} launches, expected one per level "
@@ -2139,7 +2245,7 @@ def main() -> int:
     stamp("main path 6: fused HashSIFT, batch")
     # -- main path 6: the fused HashSIFT route and the batch entry point ----
     two_stage = desc_kernels["hash_sift"]
-    fused_kernels = detect_kernels + ["hs_desc_windows"]
+    fused_kernels = detect_kernels + blur_kernels + ["hs_desc_windows"]
 
     def differing_slots(a, b, keys):
         return [k for k in keys if not torch.equal(a[k], b[k])]
@@ -2207,7 +2313,7 @@ def main() -> int:
     (bslots, bdesc), counts = drive(
         "detect_and_compute_batch",
         lambda: ef_hs.detect_and_compute_batch(batch),
-        detect_kernels + two_stage, detect_calls=nb)
+        detect_kernels + blur_kernels + two_stage, detect_calls=nb)
     for i in range(nb):
         k1, d1 = ef_hs.detect_and_compute_async(batch[i])
         differ = [k for k, v in k1._slots.items()
@@ -2312,8 +2418,8 @@ def main() -> int:
                                      descriptor_type=dtype, device="cuda",
                                      hs_fused=fused)
             kind = dtype.rsplit("_", 1)[0]
-            expect = band_kernels + (["hs_desc_windows"] if fused
-                                     else desc_kernels[kind])
+            expect = band_kernels + blur_kernels + (
+                ["hs_desc_windows"] if fused else desc_kernels[kind])
             forbid = cell_kernels + (two_stage if fused else
                                      ["hs_desc_windows"])
             label = f"detect_and_compute {dtype}{' fused' if fused else ''}"
@@ -2348,7 +2454,8 @@ def main() -> int:
         (bs_m, bd_m), counts = drive(
             "mesh detect_and_compute_batch",
             lambda: ef_hs.detect_and_compute_batch(batch, mesh=mesh),
-            detect_kernels + two_stage, detect_calls=batch.shape[0])
+            detect_kernels + blur_kernels + two_stage,
+            detect_calls=batch.shape[0])
         bs_s, bd_s = ef_hs.detect_and_compute_batch(batch)
         same_result("mesh batch", bs_m, bs_s)
         same_result("mesh batch descriptors", bd_m, bd_s)
@@ -2424,7 +2531,8 @@ def main() -> int:
                  ["fast_harris", "radius_nms"])):
             _, counts = drive(
                 f"selection {label}", fn,
-                pyramid_kernels + ["ic_angles_windows"] + route + two_stage,
+                pyramid_kernels + ["ic_angles_windows"] + route
+                + blur_kernels + two_stage,
                 forbid=[k for k in detect_routes if k not in route])
             syncs = host_syncs(f"selection {label}", fn)
             ms = time_ms(fn)
@@ -2519,7 +2627,8 @@ def main() -> int:
     with no_integral():
         (kps, desc), counts = drive(
             "4K tie scene", lambda: ef_tie.detect_and_compute_async(
-                tie_scene), detect_kernels + desc_kernels["bad"])
+                tie_scene),
+            detect_kernels + blur_kernels + desc_kernels["bad"])
     with plain_kernels():
         kps_p, desc_p = ef_tie.detect_and_compute_async(tie_scene)
     kps_c, desc_c = EfficientFeatures(
@@ -2634,7 +2743,8 @@ def main() -> int:
     from efficient_features_tpu_torch.tools import eval_matching as EV
     eval_rows, counts = drive(
         "eval_matching", lambda: EV.evaluate_fixtures("cuda"),
-        detect_kernels + two_stage + desc_kernels["bad"] + ["knn2_topk2"],
+        detect_kernels + blur_kernels + two_stage + desc_kernels["bad"]
+        + ["knn2_topk2"],
         detect_calls=8 * len(EV.FIXTURES))
     eval_cpu = EV.evaluate_fixtures("cpu")
     eval_ref = json.loads((REPO / "tools" / "EVAL.json").read_text())["rows"]

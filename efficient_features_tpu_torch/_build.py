@@ -49,6 +49,7 @@ _SIGNATURES = {
     "eff_knn2_hamming": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P],
     "eff_resize_u8": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "eff_blur7_u8": [_P, _I, _I, _P, _P, _P],
     "eff_hs_desc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                     ctypes.c_float, _P, _P, ctypes.c_float, _P, _P],
     "eff_jacobi_eigh9": [_P, _I, _I, ctypes.c_double, _P, _P],

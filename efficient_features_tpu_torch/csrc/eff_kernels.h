@@ -205,6 +205,14 @@ int eff_ransac_mask(const float* H, const float* src, const float* dst,
                     const uint8_t* valid, int n, float t2, uint8_t* mask,
                     int32_t* count, void* stream);
 
+// K14: 7x7 Gaussian blur, REFLECT_101, 16-bit fixed point
+// (ops/image.gaussian_blur7_u8 bit for bit).  src, dst: (h, w) uint8, h and
+// w at least 4, any alignment.  taps: HOST array of the 7 taps of
+// semantics.gaussian_kernel7_fixed: symmetric, none negative, summing to
+// 2^16.
+int eff_blur7_u8(const uint8_t* src, int h, int w, const int32_t* taps,
+                 uint8_t* dst, void* stream);
+
 // Text of a CUDA error code returned by the entry points above.
 const char* eff_error_string(int code);
 

@@ -1,8 +1,8 @@
 // Byte-row helpers of the kernels that stage u8 rows in shared memory or
 // store u8 rows by the word: K4 (warp_patches.cu) and K10 (resize_u8.cu)
 // load aligned 16-byte chunks of image rows that start anywhere; K9
-// (radius_nms.cu) and K10 store rows of a u8 output whose width is no
-// multiple of 4.
+// (radius_nms.cu), K10 and K14 (blur7_u8.cu) store rows of a u8 output
+// whose width is no multiple of 4.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -18,9 +18,14 @@ row-sharded pyramid level, resized from the band of the level below plus
 its exchanged halo rows, with the whole level's row table sliced and
 rebased (`parallel/sharding.py`), so that the band's pixels are those of
 the whole level.
+The blur of a CUDA tensor is the kernel K14 (csrc/blur7_u8.cu, wrapper
+`gaussian_blur7_u8_kernel`; the JAX package blurs with XLA ops, so it has
+no TPU counterpart); `gaussian_blur7_u8` is its plain version and what a
+CPU tensor takes, and `gaussian_blur7_u8_fast` picks by the device.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -273,6 +278,53 @@ def gaussian_blur7_u8(img: torch.Tensor) -> torch.Tensor:
     out = sum(int(k[i]) * vp[i:i + h] for i in range(7))
     out = (out + half) >> S.BLUR_BITS
     return out.to(torch.uint8)
+
+
+# K14's tiles (csrc/blur7_u8.cu): output rows x columns of a block.
+BLUR_TILE_H = 32
+BLUR_TILE_W = 128
+BLUR_MIN_SIDE = 4     # REFLECT_101 of a 3-pixel halo needs 4 pixels
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps():
+    """The seven taps of `semantics.gaussian_kernel7_fixed` as a C array,
+    which `eff_blur7_u8` reads on the host into its launch's arguments."""
+    return (ctypes.c_int32 * 7)(*S.gaussian_kernel7_fixed().tolist())
+
+
+def gaussian_blur7_u8_kernel(img: torch.Tensor) -> torch.Tensor:
+    """K14: `gaussian_blur7_u8` of a contiguous (H, W) uint8 CUDA tensor,
+    H and W at least 4, bit for bit, in one kernel launch.  The taps are
+    the host's (symmetric, which the kernel's sums rely on and its entry
+    checks), passed by value in the launch, so a captured graph holds no
+    pointer to them."""
+    if img.dim() != 2:
+        raise ValueError(f"img must be 2-D, got shape {tuple(img.shape)}")
+    h, w = img.shape
+    if min(h, w) < BLUR_MIN_SIDE:
+        raise ValueError(f"the blur takes at least {BLUR_MIN_SIDE} pixels "
+                         f"a side, got {h}x{w}")
+    require_cuda(img, torch.uint8, "img")
+    out = torch.empty_like(img)
+    lib = _build.library()
+    with torch.cuda.device(img.device):
+        rc = lib.eff_blur7_u8(img.data_ptr(), h, w, _blur_taps(),
+                              out.data_ptr(), stream_of(img))
+        _build.check(rc, "gaussian_blur7_u8_kernel")
+        gaussian_blur7_u8_kernel.launches += 1
+    return out
+
+
+gaussian_blur7_u8_kernel.launches = 0
+
+
+def gaussian_blur7_u8_fast(img: torch.Tensor) -> torch.Tensor:
+    """`gaussian_blur7_u8`: through K14 for a CUDA tensor, the plain version
+    for a CPU tensor.  The same bytes either way."""
+    if img.device.type == "cpu":
+        return gaussian_blur7_u8(img)
+    return gaussian_blur7_u8_kernel(img)
 
 
 def integral_image_i32(img: torch.Tensor) -> torch.Tensor:

@@ -502,13 +502,13 @@ def _band_descriptors(cur: torch.Tensor, i: int, s: int, plan: _PyramidPlan,
         refl = g.abs()
         refl = torch.where(refl >= hs, 2 * (hs - 1) - refl, refl)
         src = (refl - (i * b - DESC_HALO)).clamp(0, ext.shape[0] - 1)
-        blurred = OI.gaussian_blur7_u8(ext.index_select(0, src))
+        blurred = OI.gaussian_blur7_u8_fast(ext.index_select(0, src))
         top = DESC_HALO - DESC_MARGIN
         win = blurred[top:top + b + 2 * DESC_MARGIN]
         oy = i * b - DESC_MARGIN
     else:
         full = all_gather(cur, mesh, k).reshape(-1, ws)[:hs]
-        win = OI.gaussian_blur7_u8(full)
+        win = OI.gaussian_blur7_u8_fast(full)
         oy = 0
     in_band = valid & (ys >= i * b) & (ys < (i + 1) * b)
     d = P._compute_level_descriptors(win, ys, xs, ang, in_band, cfg,

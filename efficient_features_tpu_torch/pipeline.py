@@ -308,7 +308,7 @@ def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
     descs = []
     for (s, ys, xs, valid, ang) in per_level:
         with span("pipeline.describe_level"):
-            blurred = ops_image.gaussian_blur7_u8(levels[s])
+            blurred = ops_image.gaussian_blur7_u8_fast(levels[s])
             descs.append(_compute_level_descriptors(blurred, ys, xs, ang,
                                                     valid, cfg))
     with span("pipeline.join"):

@@ -326,7 +326,8 @@ def traced_kernels(fn) -> dict:
 def test_a_replay_traces_the_eager_calls_kernels(dev):
     """A replay launches the eager call's kernels, name for name and
     count for count, and calls no wrapper: K10's counter moves 7 on an
-    eager call and not at all on a replay."""
+    eager call and not at all on a replay, K14's 8; both trace the blur
+    as K14's 8 launches."""
     img = make_test_image(240, 320, seed=7)
     t = torch.from_numpy(img)
     ef = EfficientFeatures(nfeatures=1000, descriptor_type="bad_256",
@@ -334,10 +335,13 @@ def test_a_replay_traces_the_eager_calls_kernels(dev):
     ef.detect_and_compute_async(img)
     ef.detect_and_compute_async(img)
     before = OI.resize_u8_kernel.launches
+    blurs = OI.gaussian_blur7_u8_kernel.launches
     G.run_eager(t, ef._cfg, device=dev)
     assert OI.resize_u8_kernel.launches == before + 7
+    assert OI.gaussian_blur7_u8_kernel.launches == blurs + 8
     ef.detect_and_compute_async(img)
     assert OI.resize_u8_kernel.launches == before + 7
+    assert OI.gaussian_blur7_u8_kernel.launches == blurs + 8
     for _ in range(3):                  # a lost record takes a launch away
         eager = traced_kernels(lambda: G.run_eager(t, ef._cfg, device=dev))
         replay = traced_kernels(lambda: ef.detect_and_compute_async(img))
@@ -345,6 +349,7 @@ def test_a_replay_traces_the_eager_calls_kernels(dev):
             break
     assert eager == replay
     assert sum(n for k, n in eager.items() if "resize_kernel" in k) == 7
+    assert sum(n for k, n in eager.items() if "blur7_u8_kernel" in k) == 8
 
 
 @pytest.mark.cuda
