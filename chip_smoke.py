@@ -162,14 +162,16 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from efficient_features_tpu_torch.tools.oncard import (card, equal_image,
+                                                       host_syncs, tie_image,
+                                                       tie_mask)
 
 H, W = 2160, 3840
 NFEATURES = 40000
@@ -209,8 +211,9 @@ PEAK_F64 = 34e12
 # 1-bit tensor-core ops/s (wgmma .b1 and.popc): 8 x the int8 rate, the ratio
 # of the A100's datasheet (4992 to 624 TOP/s).  The product alone, 40000 x
 # 40000, reads 13e15 / 14e15 ops/s at 256 / 512 bits on an NVIDIA H100 80GB
-# HBM3 at 700 W (efficient_features_tpu_torch/tools/knn2_probe.py: 0.062 /
-# 0.116 ms): 0.83 / 0.89 of this, and 6.7 / 7.1 x the stated int8 rate.
+# HBM3 at 700 W (0.062 / 0.116 ms, timed alone in K6's redesign; PERF.md's
+# table of kernels): 0.83 / 0.89 of this, and 6.7 / 7.1 x the stated int8
+# rate.
 PEAK_B1_TC = 8 * PEAK_INT8_TC
 # int32 min/max per second on the CUDA cores: 64 per clock and SM (NVIDIA's
 # table of arithmetic instruction throughput for compute capability 9.0) x
@@ -247,14 +250,6 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def time_ms(fn, iters=ITERS, warmup=3) -> float:
     """Mean ms per call over `iters` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -286,33 +281,6 @@ def u8_diff(got: torch.Tensor, want: torch.Tensor):
     """(max |diff|, share of differing entries) of two uint8 tensors."""
     d = (got.to(torch.int32) - want.to(torch.int32)).abs()
     return int(d.max()), float((d != 0).double().mean())
-
-
-def tie_image() -> np.ndarray:
-    """Two identical corner patterns 4 px apart: tied co-survivors inside
-    one 8x8 block (the case of tests/test_kernels.py's tie test)."""
-    img = np.full((96, 160), 40, np.uint8)
-    img[40:44, 60:64] = 220
-    img[44:48, 64:68] = 220
-    return img
-
-
-def tie_mask() -> np.ndarray:
-    """ROI of `tie_image` that cuts one of its two tied 8x8 blocks and
-    leaves the other tied (tests/test_torch_cuda.py's tie mask): selection
-    must place the tied survivors of the masked map."""
-    mask = np.full((96, 160), 255, np.uint8)
-    mask[:, 66:] = 0
-    return mask
-
-
-def equal_image(h: int, w: int) -> np.ndarray:
-    """One bright pixel every 6 px each way: each is a FAST corner and all
-    have the same Harris response, so every corner ties with every other,
-    all survive, and K1's NMS scans the whole disc of each."""
-    cell = np.full((6, 6), 40, np.uint8)
-    cell[3, 3] = 220
-    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
 
 
 def wrap_image() -> np.ndarray:
@@ -478,8 +446,8 @@ def tied_responses(resp: torch.Tensor) -> torch.Tensor:
     return torch.where(finite, level, float("-inf"))
 
 
-def host_syncs(label: str, fn, check: bool = True) -> int:
-    """Host syncs that one call of fn makes (torch's sync debug mode), the
+def checked_syncs(label: str, fn, check: bool = True) -> int:
+    """Host syncs that one call of fn makes (`oncard.host_syncs`), the
     more of two calls: after two unchecked calls (a key's first call runs
     eagerly and its second captures its graph, `graphs.py`), one that
     replays, and, with the graph cache cleared, one that runs eagerly.
@@ -492,16 +460,7 @@ def host_syncs(label: str, fn, check: bool = True) -> int:
     for clear in (False, True):
         if clear:
             G.CACHE.clear()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                fn()
-                syncs = [str(w.message) for w in caught
-                         if "synchroniz" in str(w.message)]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        syncs = host_syncs(fn)
         if check and syncs:
             fail(f"{label}: {len(syncs)} host syncs in one call, the "
                  f"first: {syncs[0]}")
@@ -2063,8 +2022,8 @@ def main() -> int:
                   "shared memory, so K3's own integral passes return at "
                   f"once; kernels (launches, ms) {listed}")
 
-        syncs = host_syncs(f"slice {dtype}",
-                           lambda: ef.detect_and_compute_async(img))
+        syncs = checked_syncs(f"slice {dtype}",
+                              lambda: ef.detect_and_compute_async(img))
         slice_ms = time_ms(lambda: ef.detect_and_compute_async(img))
         with plain_kernels():
             plain_slice = time_ms(lambda: ef.detect_and_compute_async(img))
@@ -2148,7 +2107,7 @@ def main() -> int:
                              Hm.cpu().numpy(),
                              warps[i] @ np.linalg.inv(warps[i - 1]))
         print(f"sequence frame {i}: {int(count)} keypoints, {got}")
-    seq_syncs = host_syncs("sequence step", lambda: step(frames_dev[1]))
+    seq_syncs = checked_syncs("sequence step", lambda: step(frames_dev[1]))
     seq_ms = time_ms(lambda: step(frames_dev[1]), iters=10)
     print(f"sequence path {H}x{W}, HashSIFT-256, {NFEATURES} features, "
           f"RANSAC 256 iterations: launches {counts}; "
@@ -2234,7 +2193,7 @@ def main() -> int:
                 det = ef.detect(scene, mask=roi_np)._slots
                 if not all(torch.equal(det[k], slots[k]) for k in selection):
                     fail(f"{label}: detect() differs from detect_and_compute")
-            syncs = host_syncs(
+            syncs = checked_syncs(
                 label, lambda: ef.detect_and_compute_async(img, mask=m_dev))
             ms = time_ms(lambda: ef.detect_and_compute_async(img, mask=m_dev))
             print(f"{label}: {n} keypoints{inside}; launches {counts}; slots "
@@ -2333,16 +2292,16 @@ def main() -> int:
             ("two-stage", ef_hs)]
     for what, feat in runs:
         ms = time_ms(lambda: feat.detect_and_compute_async(img))
-        syncs = host_syncs(f"{what} slice",
-                           lambda: feat.detect_and_compute_async(img))
+        syncs = checked_syncs(f"{what} slice",
+                              lambda: feat.detect_and_compute_async(img))
         print(f"time slice hash_sift_256 {what} {H}x{W} nfeatures "
               f"{NFEATURES}: {ms:.3f} ms/call, host syncs per call {syncs} "
               f"[{hw}]")
     pyr_ms = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
-    pyr_syncs = host_syncs("pyramid", lambda: I.build_pyramid(img, 1.2, 8))
+    pyr_syncs = checked_syncs("pyramid", lambda: I.build_pyramid(img, 1.2, 8))
     with plain_kernels():
         pyr_plain = time_ms(lambda: I.build_pyramid(img, 1.2, 8))
-        pyr_plain_syncs = host_syncs(
+        pyr_plain_syncs = checked_syncs(
             "plain pyramid", lambda: I.build_pyramid(img, 1.2, 8),
             check=False)
     print(f"time pyramid {H}x{W}, 8 levels: {pyr_ms:.3f} ms/call through "
@@ -2350,8 +2309,8 @@ def main() -> int:
           f"the plain resize ({pyr_plain_syncs} host syncs) [{hw}]")
     batch_ms = time_ms(lambda: ef_hs.detect_and_compute_batch(batch), iters=10)
     single_ms = time_ms(lambda: ef_hs.detect_and_compute_async(batch[1]))
-    batch_syncs = host_syncs("batch",
-                             lambda: ef_hs.detect_and_compute_batch(batch))
+    batch_syncs = checked_syncs("batch",
+                                lambda: ef_hs.detect_and_compute_batch(batch))
     print(f"time batch of {nb} frames: {batch_ms:.3f} ms/call, "
           f"{batch_ms / nb:.3f} ms/frame, against {single_ms:.3f} ms for a "
           f"single call on one of them; host syncs per batch call "
@@ -2534,7 +2493,7 @@ def main() -> int:
                 pyramid_kernels + ["ic_angles_windows"] + route
                 + blur_kernels + two_stage,
                 forbid=[k for k in detect_routes if k not in route])
-            syncs = host_syncs(f"selection {label}", fn)
+            syncs = checked_syncs(f"selection {label}", fn)
             ms = time_ms(fn)
             sort_ms = sum(t for k, (_, t) in kernel_names(fn).items()
                           if "Sort" in k)
@@ -2647,8 +2606,8 @@ def main() -> int:
         fail(f"4K tie scene: slots {differ} differ from the plain path / "
              f"the CPU port, descriptor bytes {ndiff} (budget {budget}), "
              f"angles {dang}")
-    tie_syncs = host_syncs("4K tie scene",
-                           lambda: ef_tie.detect_and_compute_async(tie_dev))
+    tie_syncs = checked_syncs("4K tie scene",
+                              lambda: ef_tie.detect_and_compute_async(tie_dev))
     tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(tie_dev))
     no_tie_ms = time_ms(lambda: ef_tie.detect_and_compute_async(img))
     print(f"4K tie scene, BAD-256 radius 15: {kps.count} keypoints; "
@@ -2967,7 +2926,7 @@ def main() -> int:
                                              thresh=RANSAC_THRESH,
                                              device="cuda")
         r_ms = time_ms(ransac)
-        r_syncs = host_syncs(f"RANSAC {iters}", ransac)
+        r_syncs = checked_syncs(f"RANSAC {iters}", ransac)
         with plain_kernels():
             plain_r = time_ms(ransac, iters=3, warmup=1)
         print(f"time find_homography_ransac {iters} iterations, "

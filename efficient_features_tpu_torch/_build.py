@@ -110,14 +110,15 @@ def _compile_and_link(srcs: list[Path], tmp: Path, so: Path) -> None:
     os.replace(lib, so)   # atomic: a concurrent process never sees half
 
 
-def _built(srcs: list[Path], stem: str) -> tuple[Path, float]:
-    """(path, nvcc seconds) of the shared library of `srcs`, built unless a
-    build of the same sources and flags is there already (0.0 seconds)."""
+def _built() -> tuple[Path, float]:
+    """(path, nvcc seconds) of the kernel library, built unless a build of
+    the same sources and flags is there already (0.0 seconds)."""
+    srcs = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    so = _OUT / f"{stem}_{digest.hexdigest()[:16]}.so"
+    so = _OUT / f"libeff_kernels_{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so, 0.0
     _OUT.mkdir(exist_ok=True)
@@ -131,7 +132,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     if _State.lib is not None:
         return _State.lib
-    so, _State.build_seconds = _built(_sources(), "libeff_kernels")
+    so, _State.build_seconds = _built()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -143,15 +144,6 @@ def library() -> ctypes.CDLL:
     lib.eff_select_cells_scratch_bytes.restype = ctypes.c_int64
     _State.lib = lib
     return lib
-
-
-def tool_library(source: Path) -> ctypes.CDLL:
-    """A library of one measuring tool's own .cu file, which may include the
-    headers of csrc/; built like the kernel library and apart from it.  The
-    caller sets the argument types of what it calls."""
-    headers = [p for p in _sources() if p.suffix != ".cu"]
-    so, _ = _built(headers + [source], f"lib{source.stem}")
-    return ctypes.CDLL(str(so))
 
 
 def build_seconds() -> float | None:

@@ -20,9 +20,9 @@
 // in int32, and hamming = popc(q) + popc(t) - 2 * acc.  The other exact
 // form, an int8 product of the bits unpacked to a byte each
 // (m64n128k32.s32.s8.s8), was measured as a product alone and not built
-// out: on an NVIDIA H100 80GB HBM3 at 700 W, 40000 x 40000, 256 / 512 bits
-// (tools/knn2_probe.py), the int8 product takes 0.45 / 0.94 ms, the 1-bit
-// product 0.062 / 0.116 ms, and this kernel whole 0.45 / 0.55 ms.
+// out: on an NVIDIA H100 80GB HBM3 at 700 W, 40000 x 40000, 256 / 512 bits,
+// the int8 product takes 0.45 / 0.94 ms, the 1-bit product 0.062 / 0.116
+// ms, and this kernel whole 0.45 / 0.55 ms.
 //
 // What bounds it on the H100, at 40000 x 40000 per direction: the operand
 // bytes (2.6 MB at 512 bits) are nothing, and the 1-bit product alone takes

@@ -22,8 +22,7 @@
 // destination pixel written once (about 25 MB read and 17 MB written for
 // the 7 levels under a 2160x3840 frame); each pixel costs 6 multiplies.
 // The pyramid's 7 launches run one after the other (level s is made from
-// level s - 1), so the small levels also pay each launch's ramp and tail
-// (`tools/resize_probe` measures a launch with no load at all).
+// level s - 1), so the small levels also pay each launch's ramp and tail.
 //
 // Design: a 256-thread block per tile of kTileH destination rows x
 // kTileW destination columns; a thread forms 4 consecutive bytes of a row

@@ -21,13 +21,13 @@
 // output row is the only DRAM traffic that grows with the keypoints (41 MB
 // at 40000).  On a detect_and_compute call the 8 launches are short (2425
 // to 8687 slots a level), so each launch's ramp and tail weigh as much as
-// the samples (`tools/warp_probe` times the shapes below and a floor with
-// the pixel fetch replaced by a constant).
+// the samples (timed beside the shapes below and beside a floor whose
+// pixel fetch is a constant).
 //
 // Design: a 256-thread block per keypoint, 4 samples (one 32-bit word of
 // the patch) a thread, as in the first design, whose shape keeps the most
 // loads of a large keypoint in flight (a warp per keypoint is slower on
-// compute()'s 31-300 px keypoints, `tools/warp_probe`).
+// compute()'s 31-300 px keypoints).
 //   - The trig is computed here from the keypoint's size and angle, once,
 //     by thread 0 (`hs::keypoint_trig`), so the wrapper launches this
 //     kernel and runs no torch op.  An invalid slot's block writes its zero

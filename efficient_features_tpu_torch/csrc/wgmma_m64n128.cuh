@@ -2,7 +2,7 @@
 // matrix descriptor of the no-swizzle core-matrix layout (8 rows x 16 bytes
 // contiguous, the next 16 bytes of K kWgmmaLbo bytes on, the next 8 rows
 // kWgmmaSbo bytes on) and a wrapper of one m64n128 instruction with its 64
-// accumulator registers.  tools/knn2_probe.cu times the same instructions.
+// accumulator registers.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -181,16 +181,15 @@ def _slots(vals, idx, w):
     return ys, xs, torch.where(valid, vals, torch.zeros_like(vals)), valid
 
 
-def select_topk(resp: torch.Tensor, survivor: torch.Tensor, quota: int,
-                nms_radius: int | None = None):
+def select_topk(resp: torch.Tensor, survivor: torch.Tensor, quota: int):
     """Top `quota` survivors by (response desc, flat index asc).
 
     Returns fixed-shape (quota,) ys, xs (int32), resp (f32; 0 where invalid)
-    and valid (bool): one stable sort of the whole map.  `nms_radius` is the
-    JAX function's argument, which there picks an 8x8-reduced or a chunked
-    two-stage branch; both are exact, so it does not change the selection
-    here.  Ported as such, the branches made every path measured on the
-    H100 slower end to end, and two of them need a host read."""
+    and valid (bool): one stable sort of the whole map.  The JAX function
+    picks an 8x8-reduced or a chunked two-stage branch by its radius and
+    shape; both are exact, so the selection is the same.  Ported as such,
+    the branches made every path measured on the H100 slower end to end,
+    and two of them need a host read."""
     h, w = resp.shape
     masked = torch.where(survivor, canonical_zero(resp), RESP_SENTINEL)
     vals, idx = topk_stable(masked.reshape(-1), min(quota, h * w))

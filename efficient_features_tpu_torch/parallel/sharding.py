@@ -391,8 +391,7 @@ def _band_candidates(ext: torch.Tensor, halo: int, bh: int, row0: int,
     surv = DK.radius_nms(resp, cfg.nonmax_radius)
     owned = torch.zeros(e, dtype=torch.bool, device=ext.device)
     owned[halo:halo + bh] = True
-    return OD.select_topk(resp, surv & owned[:, None], quota,
-                          nms_radius=cfg.nonmax_radius)
+    return OD.select_topk(resp, surv & owned[:, None], quota)
 
 
 def _merge_topk(mesh: Mesh, k: int, quota: int, w: int, ys, xs, r, valid,

@@ -125,15 +125,13 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
                 suppressed = DK.fast_harris_nms(img, cfg.fast_threshold,
                                                 radius)
             else:
-                resp = DK.fast_harris(img, cfg.fast_threshold)
-                if lvl_mask is not None:
-                    resp = torch.where(lvl_mask, resp,
-                                       ops_detect.RESP_SENTINEL)
+                resp = torch.where(lvl_mask,
+                                   DK.fast_harris(img, cfg.fast_threshold),
+                                   ops_detect.RESP_SENTINEL)
                 surv = DK.radius_nms(resp, radius)
                 suppressed = torch.where(surv, resp, ops_detect.RESP_SENTINEL)
             ys, xs, r, valid = ops_detect.select_topk(
-                suppressed, suppressed != ops_detect.RESP_SENTINEL, quota,
-                nms_radius=radius)
+                suppressed, suppressed != ops_detect.RESP_SENTINEL, quota)
         ang = WK.ic_angles_windows(img, ys, xs, valid)
         return ys, xs, r, ang, valid
     # a level too small for the 31 px patch selects nothing (its border mask

@@ -54,8 +54,7 @@ synchronize (the host's enqueue time; equal to the wall where a call reads
 back), the device time per call by kernel from `torch.profiler` over
 another CALLS calls and the kernel launches per call (memsets among them),
 the peak allocation on the card of one call (`max_memory_allocated` above
-what was allocated before it), the device's idle share, 1 - device time /
-wall time, the device time of the sort kernels (top-k selection) and that
+what was allocated before it), the device time of the sort kernels (top-k selection) and that
 of each of the port's own kernels (csrc/) by name, the device time of each
 launch of K10 (`resize_kernel`, the pyramid's 7 levels, in launch order,
 averaged over the calls), and the
@@ -64,7 +63,8 @@ by device time and a JSON summary as the last line; `--out` also writes
 the summary to a file, `--paths` runs only the paths named.  `--root DIR`
 imports the package from DIR (default: the tree this file lies in), so
 that another tree (a parent unpacked with `git archive`) runs the same
-paths in the same call.  Exits non-zero without CUDA.
+paths in the same call; the helpers of `tools/oncard.py` come from DIR
+too, so DIR must hold that module.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -72,11 +72,9 @@ import argparse
 import itertools
 import json
 import re
-import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -88,21 +86,6 @@ CALLS = 10
 TOP = 16         # kernels listed by name; the rest are summed
 NAME = 100       # characters kept of a kernel's name
 RESIZE = "resize_kernel"    # K10's kernel, listed launch by launch
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def equal_image(h: int, w: int) -> np.ndarray:
-    """One bright pixel every 6 px each way: each is a FAST corner and all
-    have the same Harris response (chip_smoke.equal_image)."""
-    cell = np.full((6, 6), 40, np.uint8)
-    cell[3, 3] = 220
-    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
 
 
 def port_kernel_names(csrc: Path) -> frozenset:
@@ -139,24 +122,12 @@ def launches_ms(events, name: str, calls: int) -> list[float] | None:
     return (us.reshape(calls, -1).mean(axis=0) / 1e3).tolist()
 
 
-def host_syncs(fn) -> int:
-    """Host syncs that one call of fn makes (torch's sync debug mode)."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-            return sum("synchroniz" in str(w.message) for w in caught)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-
-
 def profile(fn, ours: frozenset) -> dict:
     """Wall ms per call, the host's ms per call to enqueue them, device ms
-    per call by kernel name, kernel launches per call, idle share, host
-    syncs per call, and the peak of what one call allocates on the card."""
+    per call by kernel name, kernel launches per call, host syncs per call,
+    and the peak of what one call allocates on the card."""
     from torch.profiler import ProfilerActivity
+    from efficient_features_tpu_torch.tools.oncard import host_syncs
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -186,8 +157,7 @@ def profile(fn, ours: frozenset) -> dict:
     device = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall, "enqueue_ms": (t1 - t0) * 1e3 / CALLS,
-            "device_ms": device,
-            "idle_share": 1.0 - device / wall, "n_kernels": len(ranked),
+            "device_ms": device, "n_kernels": len(ranked),
             "launches": launches / CALLS, "peak_mib": peak,
             "kernels_ms": {k[:NAME]: v for k, v in ranked[:TOP]},
             "other_ms": sum(v for _, v in ranked[TOP:]),
@@ -195,7 +165,7 @@ def profile(fn, ours: frozenset) -> dict:
             "port_kernels_ms": {port_kernel(k, ours): v for k, v in ranked
                                 if port_kernel(k, ours)},
             "resize_launches_ms": launches_ms(prof.events(), RESIZE, CALLS),
-            "host_syncs": host_syncs(fn)}
+            "host_syncs": len(host_syncs(fn))}
 
 
 def recorded(module, name: str, fn) -> list:
@@ -240,6 +210,7 @@ def main() -> int:
     from efficient_features_tpu_torch.samples import sample_common as SC
     from efficient_features_tpu_torch.samples import \
         sample_image_sequence as SIS
+    from efficient_features_tpu_torch.tools.oncard import card, equal_image
     if Path(pkg.__file__).resolve().parents[1] != root:
         raise SystemExit(f"profile_paths: imported {pkg.__file__}, not {root}")
 
@@ -341,8 +312,8 @@ def main() -> int:
         summary["paths"][name] = res
         print(f"{name}: wall {res['wall_ms']:.3f} ms/call (enqueued in "
               f"{res['enqueue_ms']:.3f}), device "
-              f"{res['device_ms']:.3f} ms/call, idle share "
-              f"{res['idle_share']:.3f}, host syncs {res['host_syncs']}, "
+              f"{res['device_ms']:.3f} ms/call, host syncs "
+              f"{res['host_syncs']}, "
               f"{res['launches']:g} launches and {res['n_kernels']} kernel "
               f"names a call, peak allocation {res['peak_mib']:.3f} MiB "
               f"[{hw}] ({root})")

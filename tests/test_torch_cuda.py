@@ -32,27 +32,11 @@ from efficient_features_tpu_torch.ops import detect_kernels as DK
 from efficient_features_tpu_torch.ops import hash_sift as THS
 from efficient_features_tpu_torch.ops import orientation as TO
 from efficient_features_tpu_torch.ops import window_kernels as WK
+from efficient_features_tpu_torch.tools.oncard import (equal_image, tie_image,
+                                                       tie_mask)
 from efficient_features_tpu_torch.utils import semantics as TS
 
 from util import make_test_image
-
-
-def tie_image():
-    """Two identical corner patterns 4 px apart: tied co-survivors inside
-    one 8x8 block."""
-    img = np.full((96, 160), 40, np.uint8)
-    img[40:44, 60:64] = 220
-    img[44:48, 64:68] = 220
-    return img
-
-
-def tie_mask():
-    """ROI mask of `tie_image` (255 = search) that cuts one of its two tied
-    8x8 blocks at column 66 and leaves the other tied, so selection must
-    place tied survivors of the masked map."""
-    mask = np.full((96, 160), 255, np.uint8)
-    mask[:, 66:] = 0
-    return mask
 
 
 def tied_responses(resp: torch.Tensor) -> torch.Tensor:
@@ -532,14 +516,6 @@ def test_sequence_step_on_the_card_matches_the_cpu(dev):
 def _detect_images():
     return (make_test_image(200, 280, seed=33),
             make_test_image(141, 203, seed=8), tie_image(), wrap_image())
-
-
-def equal_image(h, w):
-    """One bright pixel every 6 px each way: all corners have the same
-    response, so ties must co-survive (chip_smoke.equal_image)."""
-    cell = np.full((6, 6), 40, np.uint8)
-    cell[3, 3] = 220
-    return np.tile(cell, (-(-h // 6), -(-w // 6)))[:h, :w].copy()
 
 
 def _nms_images():

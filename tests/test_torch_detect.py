@@ -12,6 +12,7 @@ import torch
 from efficient_features_tpu.ops import detect as JD
 from efficient_features_tpu_torch.ops import detect as TD
 from efficient_features_tpu_torch.ops import detect_kernels as TDK
+from efficient_features_tpu_torch.tools.oncard import tie_image
 
 from util import make_test_image
 
@@ -35,15 +36,6 @@ def _border(h, w, b=15):
     m = np.zeros((h, w), bool)
     m[b:h - b, b:w - b] = True
     return m
-
-
-def tie_image():
-    """Two identical corner patterns 4 px apart: tied co-survivors inside
-    one 8x8 block."""
-    img = np.full((96, 160), 40, np.uint8)
-    img[40:44, 60:64] = 220
-    img[44:48, 64:68] = 220
-    return img
 
 
 @pytest.fixture(scope="module")

@@ -5,10 +5,10 @@ JAX's `select_topk` picks a branch by the shape and `nms_radius`: the 8x8
 block-reduced selection (nms_radius >= 10), the chunked two-stage top-k
 (`chunked`) and its NMS-sparsity cap with a per-chunk count check (`capped`,
 which falls back to the flat form when ties overflow the cap), or the flat
-form.  Every branch is exact, and the port's one stable sort takes the same
-`nms_radius` without changing its selection.  So the tolerance is zero: on
-inputs that send JAX down each branch and each fallback, ys, xs, resp and
-valid equal JAX's `select_topk` and the port's call without a radius.
+form.  Every branch is exact, and the port's one stable sort, which takes
+no radius, selects the same.  So the tolerance is zero: on inputs that
+send JAX down each branch and each fallback, ys, xs, resp and valid equal
+JAX's `select_topk`.
 Through the pipeline: `detect` at radius 5 (JAX's level 0 takes the capped
 branch) against JAX's `detect_jit`, and a 1-rank gloo `detect(mesh=)` at
 radius 15 (JAX's bands take the reduced branch) against the single-device
@@ -55,17 +55,15 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 
 def _check(resp, surv, quota, radius):
-    """The port's select_topk with `radius` equals JAX's and the port's call
-    without a radius."""
+    """The port's select_topk equals JAX's at `radius`, whichever branch
+    the radius picks there."""
     want = JD.select_topk(jnp.asarray(resp), jnp.asarray(surv), quota,
                           nms_radius=radius)
-    flat = TD.select_topk(_t(resp), _t(surv), quota)
-    got = TD.select_topk(_t(resp), _t(surv), quota, nms_radius=radius)
-    for g, f, e in zip(got, flat, want):
+    got = TD.select_topk(_t(resp), _t(surv), quota)
+    for g, e in zip(got, want):
         e = np.asarray(e)
         assert g.numpy().dtype == e.dtype
         np.testing.assert_array_equal(g.numpy(), e)
-        assert torch.equal(g, f)
     return got
 
 

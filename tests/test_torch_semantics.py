@@ -115,7 +115,7 @@ def test_port_imports_without_jax():
         "'ops.ransac', 'parallel.sharding', 'parallel.launch', "
         "'samples.hpatches_description', 'samples.sample_image_sequence', "
         "'tools.eval_matching', 'tools.profile_paths', "
-        "'tools.dryrun_multichip'):\n"
+        "'tools.dryrun_multichip', 'tools.oncard'):\n"
         "    assert T.__name__ + '.' + want in names, want\n"
         "assert 'jaxlib' not in sys.modules\n"
         "print(sorted(T.__all__))\n")
