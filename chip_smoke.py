@@ -823,12 +823,17 @@ def main() -> int:
                     "hash_sift": ["warp_patches_windows",
                                   "hs_hist_from_patches"]}
 
+    def eager_run(*args, **kwargs):
+        """`G.CACHE.run` as an eager call: the core's own tensors, and no
+        packed block."""
+        return G.run_eager(*args, **kwargs) + (None,)
+
     def plain_kernels():
         """Route the pipeline through the plain versions (this script
         only: it is the on-card reference), eagerly: a captured graph
         replays the kernels it captured."""
         return patched([((m, n), ref) for m, n, ref, *_ in kernels]
-                       + [((G.CACHE, "run"), G.run_eager)])
+                       + [((G.CACHE, "run"), eager_run)])
 
     def no_integral():
         """K3 sums its own boxes: on the card path a call of the integral
@@ -861,7 +866,7 @@ def main() -> int:
         # counts are reset and read while the recorders are in place
         with patched([((m, n), recording(getattr(m, n), n))
                       for m, n, *_ in kernels]
-                      + [((G.CACHE, "run"), G.run_eager)]):
+                      + [((G.CACHE, "run"), eager_run)]):
             for m, n, *_ in kernels:
                 getattr(m, n).launches = 0
             out = fn()
@@ -2656,6 +2661,36 @@ def main() -> int:
               + f" [{hw}]")
     del equal_dev
 
+    stamp("the packed fetch")
+    # -- a replayed synchronous call brings its packed block to the host in
+    # one pinned copy, and its host arrays equal the eager route's reads
+    # field by field, bit for bit
+    from efficient_features_tpu_torch.api import KeyPoints
+    before = (G.CACHE.packed_fetches, G.CACHE.field_fetches)
+    kps_f, desc_f = ef_r15.detect_and_compute(scene)
+    arrays_f = kps_f.as_arrays()
+    if (G.CACHE.packed_fetches, G.CACHE.field_fetches) != (
+            before[0] + 1, before[1]) or kps_f._packed is None:
+        fail(f"packed fetch: counters {before} -> {G.CACHE.packed_fetches}, "
+             f"{G.CACHE.field_fetches}: the replay was not fetched as one "
+             f"block")
+    slots_e, desc_e = G.run_eager(torch.from_numpy(scene), ef_r15._cfg,
+                                  device=dev)
+    kps_e = KeyPoints(slots_e)
+    arrays_e = kps_e.as_arrays()
+    valid_e = slots_e["valid"].cpu().numpy()
+    if not (all(np.array_equal(arrays_f[k], arrays_e[k]) and
+                arrays_f[k].dtype == arrays_e[k].dtype for k in arrays_e)
+            and np.array_equal(desc_f, desc_e.cpu().numpy()[valid_e])):
+        fail("packed fetch: host arrays differ from the eager route's")
+    fetch_syncs = host_syncs(
+        lambda: ef_r15.detect_and_compute(img)[0].as_arrays())
+    print(f"packed fetch: {len(arrays_f['x'])} keypoints, host arrays and "
+          f"descriptors bit-identical to the eager route; host syncs of a "
+          f"replayed detect_and_compute + as_arrays on a card image "
+          f"{len(fetch_syncs)}")
+    del kps_f, desc_f, slots_e, desc_e, kps_e
+
     stamp("the profiler on the card")
     # -- utils/profiler: timeit_ms beside time_ms on one device-bound call,
     # and a trace that holds K1's kernels and an annotate range
@@ -3114,7 +3149,9 @@ def main() -> int:
     stamp("done")
     print(f"main-path launches (all paths, all runs): {totals}")
     print(f"graph cache since its last clear: {G.CACHE.eager} eager calls, "
-          f"{G.CACHE.captures} captures, {G.CACHE.replays} replays")
+          f"{G.CACHE.captures} captures, {G.CACHE.replays} replays; fetches "
+          f"{G.CACHE.packed_fetches} packed, {G.CACHE.field_fetches} field "
+          f"by field")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "efficient_features_tpu_torch/csrc/" + source,

@@ -15,6 +15,18 @@ image, and each frame of `detect_and_compute_batch` without a mesh, run
 as a replay of a captured CUDA graph from the second call of a shape and
 configuration on (`graphs.py`); the tensors returned are the caller's.
 
+Results reach the host in one of two ways.  Where the slots and the
+descriptors are views of one packed block (`graphs.Layout`: a replay or a
+capture of a key, and each frame of the single-device batch), the
+synchronous entries (`detect_and_compute`,
+`detect_and_compute_batch(as_host=True)`) copy that block in one
+`cudaMemcpyAsync` into pinned host memory (torch's caching host
+allocator, a buffer a call) and wait once; `detect` waits and fetches
+nothing, and a later `as_arrays()` fetches its block the same way.
+Elsewhere (a key's first, eager call, the CPU, the mesh routes, user
+slots) `KeyPoints` reads the slots field by field.  Both give the same
+host arrays, cut from the valid slots by runs (`compact_runs`).
+
 `mesh=` (a `parallel.sharding.Mesh` over `torch.distributed` ranks, made by
 `make_mesh` or `make_mesh_2d`): every rank of the mesh makes the same call
 on the same input, computes its share on the detector's device, and gets
@@ -29,6 +41,7 @@ where the host blocks on the card `eff/wait.<what>` (`block`, `count`,
 from __future__ import annotations
 
 from dataclasses import replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,13 +51,74 @@ from . import pipeline as P
 from .utils.profiler import span
 
 
+# More runs of valid slots than this are cut by a boolean mask: a slice
+# a run costs more than the mask beyond about this many.
+_MAX_RUNS = 64
+
+
+def compact_runs(valid: np.ndarray):
+    """A function that takes the rows of an array where the 1-D bool mask
+    `valid` holds, in slot order: `v[valid]` for any v with len(valid)
+    rows, with v's dtype.  Detector slots hold their valid slots first in
+    each level (`csrc/select_cells.cu`), one run a level, so it joins a
+    slice a run; past `_MAX_RUNS` runs it takes the mask."""
+    edges = np.flatnonzero(np.diff(valid, prepend=False, append=False))
+    if len(edges) > 2 * _MAX_RUNS:
+        return lambda v: v[valid]
+    runs = edges.reshape(-1, 2)
+    if not len(runs):
+        return lambda v: v[:0].copy()
+    return lambda v: np.concatenate([v[a:b] for a, b in runs])
+
+
+class _Host(NamedTuple):
+    """A `KeyPoints`' results on the host: its slots (numpy, `count`
+    included only from a block), its descriptor rows or None, and the
+    compaction of its valid slots (`compact_runs`)."""
+    slots: dict
+    descs: np.ndarray | None
+    take: object
+
+
+def _on_host(slots: dict, descs) -> _Host:
+    """Host tensors (or arrays) as a `_Host`."""
+    h = {k: np.asarray(v) for k, v in slots.items()}
+    return _Host(h, None if descs is None else np.asarray(descs),
+                 compact_runs(h["valid"]))
+
+
+def fetch_block(block: torch.Tensor) -> torch.Tensor:
+    """A packed block (or batch of blocks) on the host: from a card, one
+    copy into a pinned buffer of torch's caching host allocator and one
+    wait for the stream; a host block as it is."""
+    if block.device.type != "cuda":
+        return block
+    host = torch.empty(block.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(block, non_blocking=True)
+    # the copy is the stream's last work: waiting for the stream is waiting
+    # for it, and a stream wait, unlike an event's, is what torch's sync
+    # debug mode and the trace's sync count see
+    torch.cuda.current_stream(block.device).synchronize()
+    G.CACHE._count("packed_fetches")
+    return host
+
+
 class KeyPoints:
     """Device-resident keypoint set (fixed-capacity slots + validity mask),
-    fields as in the reference's SoA layout plus octave and size."""
+    fields as in the reference's SoA layout plus octave and size.
+
+    From a replay or a capture on a card, the slots (and the descriptors
+    returned beside them) are views of one packed block: the synchronous
+    entries bring it to the host in one pinned copy, and `KeyPoints` keeps
+    it there, so that `as_arrays()`, `xysa()`, `cv_keypoints()` and
+    `compute()` read nothing more from the card.  Other slots (an eager
+    call, the CPU, a mesh, user slots) are read field by field, once."""
 
     def __init__(self, slots: dict, max_size: float | None = None,
-                 level_ranges: tuple | None = None):
+                 level_ranges: tuple | None = None, packed=None):
         self._slots = slots
+        self._packed = packed      # (block, graphs.Layout) or None
+        self._fetched = None       # _Host, once fetched
         self._host = None
         self._max_size = max_size
         self._level_ranges = level_ranges
@@ -81,14 +155,37 @@ class KeyPoints:
         with span("api.count"), span("wait.count"):
             return int(self._slots["count"])
 
+    def _fetch(self, descs=None) -> _Host:
+        """The slots (and `descs`, the descriptor rows of a call, unless
+        the block holds them) on the host, fetched once: a packed block in
+        one copy, else field by field."""
+        if self._fetched is None:
+            with span("wait.fetch"):
+                if self._packed is not None:
+                    block, layout = self._packed
+                    slots, d = layout.unpack(fetch_block(block))
+                else:
+                    if self._slots["x"].is_cuda:
+                        G.CACHE._count("field_fetches")
+                    slots = {k: v.cpu() for k, v in self._slots.items()
+                             if k != "count"}
+                    d = None if descs is None else descs.cpu()
+            self._fetched = _on_host(slots, d)
+        return self._fetched
+
+    def _take(self):
+        """The compaction of the valid slots (`compact_runs`): from the
+        fetched host slots, else from a read of the valid mask alone."""
+        if self._fetched is not None:
+            return self._fetched.take
+        return compact_runs(self._slots["valid"].cpu().numpy())
+
     def _compact(self):
         if self._host is None:
             with span("api.as_arrays"):
-                with span("wait.fetch"):
-                    h = {k: v.cpu().numpy() for k, v in self._slots.items()
-                         if k != "count"}
-                m = h.pop("valid")
-                self._host = {k: v[m] for k, v in h.items()}
+                host = self._fetch()
+                self._host = {k: host.take(v) for k, v in host.slots.items()
+                              if k not in ("valid", "count")}
         return self._host
 
     def as_arrays(self):
@@ -205,9 +302,9 @@ class _DescriptorBase:
             desc = self.compute_async(image, keypoints)
             with span("wait.fetch"):
                 out = desc.cpu().numpy()
-                valid = keypoints._slots["valid"].cpu().numpy() \
+                take = keypoints._take() \
                     if isinstance(keypoints, KeyPoints) else None
-            return out if valid is None else out[valid]
+            return out if take is None else take(out)
 
     def compute_async(self, image, keypoints) -> torch.Tensor:
         """Descriptors for `keypoints` on `image` (the raw image, no blur),
@@ -344,21 +441,23 @@ class EfficientFeatures:
         return img, mask
 
     def _run(self, img, mask, mesh, with_descriptors: bool):
-        """(slots, descriptors or None) of one image: on a card through the
-        graph cache (`graphs.py`), on the CPU eagerly, and over a mesh
-        eagerly on its row bands."""
+        """(slots, descriptors or None, (block, layout) or None) of one
+        image: on a card through the graph cache (`graphs.py`; a packed
+        block from a capture or a replay), on the CPU eagerly, and over a
+        mesh eagerly on its row bands."""
         dev = self._device
         if mesh is None and dev.type == "cuda":
             return G.CACHE.run(img, self._cfg, mask, with_descriptors, dev)
         img = G.upload(img, dev)
         mask = None if mask is None else G.upload(mask, dev) != 0
         if mesh is None:
-            return G.run_eager(img, self._cfg, mask, with_descriptors, dev)
+            return G.run_eager(img, self._cfg, mask, with_descriptors,
+                               dev) + (None,)
         from .parallel import sharding as SH
         G.CACHE.note_eager(dev)
         out = SH.detect_pyramid_rows_sharded(img, self._cfg, mesh,
                                              with_descriptors, mask)
-        return out if with_descriptors else (out, None)
+        return (out if with_descriptors else (out, None)) + (None,)
 
     # -- detection ---------------------------------------------------------
 
@@ -374,17 +473,18 @@ class EfficientFeatures:
         raises ValueError."""
         with span("api.detect_async"):
             img, mask = self._inputs(image, mask)
-            slots, _ = self._run(img, mask, mesh, False)
-            return self._keypoints(slots, img.shape)
+            slots, _, packed = self._run(img, mask, mesh, False)
+            return self._keypoints(slots, img.shape, packed)
 
-    def _keypoints(self, slots: dict, hw) -> KeyPoints:
+    def _keypoints(self, slots: dict, hw, packed=None) -> KeyPoints:
         """Detector output with its static size bound and slot layout."""
         cfg = self._cfg
         return KeyPoints(
             slots,
             max_size=float(P.S.PATCH_SIZE
                            * cfg.scale_factor ** (cfg.nlevels - 1)),
-            level_ranges=P.level_slot_ranges(cfg, int(hw[0]), int(hw[1])))
+            level_ranges=P.level_slot_ranges(cfg, int(hw[0]), int(hw[1])),
+            packed=packed)
 
     def compute(self, image, keypoints) -> np.ndarray:
         return self._describer().compute(image, keypoints)
@@ -404,11 +504,10 @@ class EfficientFeatures:
         keypoints)."""
         with span("api.detect_and_compute"):
             kps, desc = self.detect_and_compute_async(image, mask, mesh)
-            kps.block()
-            with span("wait.fetch"):
-                desc = desc.cpu().numpy()
-                valid = kps._slots["valid"].cpu().numpy()
-            return kps, desc[valid]
+            if kps._packed is None:
+                kps.block()
+            host = kps._fetch(desc)
+            return kps, host.take(host.descs)
 
     def detect_and_compute_async(self, image, mask=None, mesh=None):
         """(KeyPoints, slot-aligned (capacity, bytes) uint8 device tensor);
@@ -416,8 +515,8 @@ class EfficientFeatures:
         band describing the keypoints in its rows."""
         with span("api.detect_and_compute_async"):
             img, mask = self._inputs(image, mask)
-            slots, descs = self._run(img, mask, mesh, True)
-            return self._keypoints(slots, img.shape), descs
+            slots, descs, packed = self._run(img, mask, mesh, True)
+            return self._keypoints(slots, img.shape, packed), descs
 
     def convert(self, keypoints: KeyPoints):
         """KeyPoints -> list of cv2.KeyPoint (reference `convert`)."""
@@ -439,7 +538,9 @@ class EfficientFeatures:
 
         as_host=True instead fetches everything and returns a list of
         (KeyPoints, descriptors) per image, descriptor rows compacted to the
-        valid keypoints, as `detect_and_compute` gives them."""
+        valid keypoints, as `detect_and_compute` gives them: without a
+        mesh the (B, block) results in one copy into pinned memory, with
+        one field by field."""
         with span("api.detect_and_compute_batch"):
             from .parallel import sharding as SH
             imgs = images if isinstance(images, torch.Tensor) else \
@@ -448,23 +549,35 @@ class EfficientFeatures:
                 raise ValueError("images must be (B, H, W) uint8")
             P.validate_image_shape(self._cfg, *imgs.shape[1:])
             imgs = G.upload(imgs, self._device)
-            if mesh is not None:
-                G.CACHE.note_eager(self._device)
-            if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
-                slots, desc = SH.detect_and_compute_batch_2d(imgs, self._cfg,
-                                                             mesh)
+            block = None
+            if mesh is None:
+                block, layout = SH.batch_block(imgs, self._cfg, imgs.is_cuda)
+                slots, desc = layout.unpack(block)
             else:
-                slots, desc = SH.detect_and_compute_batch(imgs, self._cfg,
-                                                          mesh)
+                G.CACHE.note_eager(self._device)
+                if isinstance(mesh, SH.Mesh) and len(mesh.shape) == 2:
+                    slots, desc = SH.detect_and_compute_batch_2d(
+                        imgs, self._cfg, mesh)
+                else:
+                    slots, desc = SH.detect_and_compute_batch(
+                        imgs, self._cfg, mesh)
             if not as_host:
                 return slots, desc
             with span("wait.fetch"):
-                host = {k: v.cpu() for k, v in slots.items()}
-                desc = desc.cpu().numpy()
-            return [(self._keypoints({k: v[i] for k, v in host.items()},
-                                     imgs.shape[1:]),
-                     desc[i][host["valid"][i].numpy()])
-                    for i in range(imgs.shape[0])]
+                if block is not None:
+                    host, desc = layout.unpack(fetch_block(block))
+                else:
+                    if desc.is_cuda:
+                        G.CACHE._count("field_fetches")
+                    host = {k: v.cpu() for k, v in slots.items()}
+                    desc = desc.cpu()
+            out = []
+            for i in range(imgs.shape[0]):
+                frame = {k: v[i] for k, v in host.items()}
+                kps = self._keypoints(frame, imgs.shape[1:])
+                kps._fetched = _on_host(frame, desc[i])
+                out.append((kps, kps._fetched.take(kps._fetched.descs)))
+            return out
 
     # -- descriptor metadata -------------------------------------------------
 

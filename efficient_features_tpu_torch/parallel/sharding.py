@@ -9,7 +9,8 @@ single-device call returns for the whole input.
   dp (batch): `detect_and_compute_batch(images, cfg, mesh)`: each rank
       its frames (`shard_batch`), one after the other, then an all-gather.
       Without a mesh, every frame on the images' device; on a card, each
-      frame a replay of one captured graph (`graphs.py`).
+      frame a replay of one captured graph (`graphs.py`), its results in
+      row i of one (B, block) tensor (`batch_block`).
   keypoints: `compute_sharded`: each rank a slice of the keypoints.
   match: `knn2_match_sharded`: each rank a slice of the queries against
       every train row, and a slice of the train rows for the cross check,
@@ -197,28 +198,21 @@ def shard_batch(images, mesh: Mesh) -> torch.Tensor:
     return imgs[r * (b // n):(r + 1) * (b // n)]
 
 
-def _batch_loop(images: torch.Tensor, cfg: P.FeatureConfig,
+def batch_block(images: torch.Tensor, cfg: P.FeatureConfig,
                 graphs: bool = False):
-    """Every frame's `P.detect_and_compute`, in (B, ...) results: frame 0's
-    shapes size them, and every later frame is copied straight in.
-    graphs: each frame through the graph cache (`graphs.CACHE`, one key for
-    the batch), else eagerly."""
+    """Every frame's `P.detect_and_compute` packed, one frame after the
+    other: ((B, nbytes) uint8 blocks on the images' device, frame i's in
+    row i, and their `graphs.Layout`).  graphs: each frame through the
+    graph cache (`graphs.CACHE`, one key for the batch), else eagerly; the
+    joins of an eager frame write into its row, a replay's block is copied
+    there."""
+    layout = G.Layout.of(cfg, images.shape[1:], True)
+    out = layout.new(images.device, (len(images),))
     run = G.CACHE.run if graphs else G.run_eager
-    out = None
     for i, img in enumerate(images.unbind(0)):
         with span("sharding.frame"):
-            if out is None:
-                slots, desc = run(img, cfg)
-                out = ({k: v.new_empty((len(images),) + v.shape)
-                        for k, v in slots.items()},
-                       desc.new_empty((len(images),) + desc.shape))
-                for k, v in slots.items():
-                    out[0][k][0].copy_(v)
-                out[1][0].copy_(desc)
-            else:
-                run(img, cfg, out=({k: v[i] for k, v in out[0].items()},
-                                   out[1][i]))
-    return out
+            run(img, cfg, out=out[i])
+    return out, layout
 
 
 def _gather_batch(slots: dict, desc: torch.Tensor, mesh: Mesh, k: int):
@@ -245,9 +239,10 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: P.FeatureConfig,
             images.shape[0] < 1:
         raise ValueError("images must be (B, H, W) uint8 with B >= 1")
     if mesh is None:
-        return _batch_loop(images, cfg, images.is_cuda)
-    slots, desc = _batch_loop(shard_batch(images, mesh), cfg)
-    return _gather_batch(slots, desc, mesh, 0)
+        block, layout = batch_block(images, cfg, images.is_cuda)
+        return layout.unpack(block)
+    block, layout = batch_block(shard_batch(images, mesh), cfg)
+    return _gather_batch(*layout.unpack(block), mesh, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ around each concatenation of the levels.  HashSIFT's steps open
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -142,9 +143,12 @@ def _detect_level(img, quota, cfg: FeatureConfig, lvl_mask=None):
                                            device=img.device)
 
 
+@functools.lru_cache(maxsize=64)
 def level_slot_ranges(cfg: FeatureConfig, img_h: int, img_w: int):
     """Static per-level slot layout of detect output: ((start, stop,
-    size_bound), ...), one entry per pyramid level in detect_core's order."""
+    size_bound), ...), one entry per pyramid level in detect_core's order.
+    Kept per (cfg, shape): every call of the API asks for it, and working
+    it out takes about 0.1 ms of host time."""
     quotas = cfg.quotas()
     shapes = S.pyramid_shapes(img_h, img_w, cfg.scale_factor, cfg.nlevels)
     scales = S.pyramid_scales(cfg.scale_factor, cfg.nlevels)
@@ -201,20 +205,25 @@ def _level_slots(s: int, scale, quota: int, ys, xs, r, ang,
     }
 
 
-def _join_slots(levels: list[dict]) -> dict:
-    """The per-level slot dicts, concatenated, with their valid count."""
-    slots = {k: torch.cat([lv[k] for lv in levels]) for k in levels[0]}
-    slots["count"] = slots["valid"].sum(dtype=torch.int32)
+def _join_slots(levels: list[dict], out: dict | None = None) -> dict:
+    """The per-level slot dicts, concatenated, with their valid count;
+    written into `out`'s tensor of a key where it has one."""
+    out = out or {}
+    slots = {k: torch.cat([lv[k] for lv in levels], out=out.get(k))
+             for k in levels[0]}
+    slots["count"] = torch.sum(slots["valid"], 0, dtype=torch.int32,
+                               out=out.get("count"))
     return slots
 
 
 def detect_core(image: torch.Tensor, cfg: FeatureConfig,
-                mask: torch.Tensor | None = None):
+                mask: torch.Tensor | None = None, out: dict | None = None):
     """Returns (slots, levels, per_level): the per-slot dict over
     sum(quotas[first_level:]) slots, the pyramid, and per-level
     (s, ys, xs, valid, ang) in level coordinates.  `mask` (optional (h, w)
     tensor on the image's device, nonzero = search here) restricts
-    detection at every level."""
+    detection at every level.  `out`: tensors the join writes the slots
+    into (`graphs.Layout.unpack`), by key."""
     h0, w0 = int(image.shape[0]), int(image.shape[1])
     validate_image_shape(cfg, h0, w0)
     with span("pipeline.pyramid"):
@@ -238,7 +247,7 @@ def detect_core(image: torch.Tensor, cfg: FeatureConfig,
                                            ang, valid), x_level=xs,
                               y_level=ys))
     with span("pipeline.join"):
-        slots = _join_slots(parts)
+        slots = _join_slots(parts, out)
     return slots, levels, per_level
 
 
@@ -299,8 +308,12 @@ def _compute_level_descriptors(blurred, ys, xs, ang, valid,
 
 def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
                             with_descriptors: bool = True,
-                            mask: torch.Tensor | None = None):
-    slots, levels, per_level = detect_core(image, cfg, mask)
+                            mask: torch.Tensor | None = None, out=None):
+    """(slots, descriptors or None) with the slots' level coordinates
+    `x_level`, `y_level`.  `out`: (slot tensors by key, descriptor rows)
+    that the joins write into, as `graphs.Layout.unpack` gives them."""
+    slot_out, desc_out = (None, None) if out is None else out
+    slots, levels, per_level = detect_core(image, cfg, mask, slot_out)
     if not with_descriptors:
         return slots, None
     descs = []
@@ -310,7 +323,7 @@ def detect_and_compute_core(image: torch.Tensor, cfg: FeatureConfig,
             descs.append(_compute_level_descriptors(blurred, ys, xs, ang,
                                                     valid, cfg))
     with span("pipeline.join"):
-        descs = torch.cat(descs, dim=0)
+        descs = torch.cat(descs, dim=0, out=desc_out)
     return slots, descs
 
 

@@ -8,7 +8,10 @@ the eager call bit for bit on every descriptor type, route and shape the
 core takes, outputs belong to the caller, the batch equals single calls,
 the counters follow each key, a replay launches the eager call's kernels
 and outlives the table caches, a mesh call never captures, and calls on
-several threads stay in order.
+several threads stay in order, on the card and on the host.  The
+synchronous entries fetch a replay's packed block in one pinned copy with
+one wait, and give the host arrays of the eager route's field-by-field
+reads bit for bit.
 """
 import json
 import socket
@@ -21,6 +24,7 @@ import torch
 from efficient_features_tpu_torch import EfficientFeatures
 from efficient_features_tpu_torch import graphs as G
 from efficient_features_tpu_torch import pipeline as P
+from efficient_features_tpu_torch.api import KeyPoints
 from efficient_features_tpu_torch.ops import image as OI
 from efficient_features_tpu_torch.samples import sample_common as SC
 from efficient_features_tpu_torch.utils import profiler
@@ -40,14 +44,48 @@ def counters():
 
 
 def same(a, b):
-    """(slots, descriptors or None) pairs equal bit for bit."""
+    """(slots, descriptors or None) pairs equal bit for bit, in dtype."""
     (sa, da), (sb, db) = a, b
     assert sa.keys() == sb.keys()
     for k in sa:
+        assert sa[k].dtype == sb[k].dtype, k
         assert torch.equal(sa[k], sb[k]), k
     assert (da is None) == (db is None)
     if da is not None:
-        assert torch.equal(da, db)
+        assert da.dtype == db.dtype and torch.equal(da, db)
+
+
+def on_host(kps, desc=None):
+    """A call's host results: as_arrays(), xysa() and the compacted
+    descriptors (a host array, or device rows compacted here)."""
+    if isinstance(desc, torch.Tensor):
+        desc = desc.cpu().numpy()[kps._slots["valid"].cpu().numpy()]
+    return kps.as_arrays(), kps.xysa(), desc
+
+
+def same_host(a, b):
+    """`on_host` results equal bit for bit, in dtype."""
+    (aa, ax, ad), (ba, bx, bd) = a, b
+    assert list(aa) == list(ba)
+    for k in aa:
+        assert aa[k].dtype == ba[k].dtype, k
+        assert np.array_equal(aa[k], ba[k]), k
+    assert np.array_equal(ax, bx)
+    assert (ad is None) == (bd is None)
+    if ad is not None:
+        assert ad.dtype == bd.dtype and np.array_equal(ad, bd)
+
+
+def eager_host(img, cfg, with_descriptors, dev):
+    """The eager route's host results: the core's own tensors, read field
+    by field."""
+    slots, desc = G.run_eager(torch.from_numpy(img), cfg,
+                              with_descriptors=with_descriptors, device=dev)
+    return on_host(KeyPoints(slots), desc)
+
+
+def fetches():
+    return G.CACHE.packed_fetches, G.CACHE.field_fetches
 
 
 def as_pair(kps, desc=None):
@@ -411,6 +449,9 @@ def test_replays_on_threads_stay_in_order(dev, keys):
                            device="cuda")
     want = [[G.run_eager(torch.from_numpy(img), ef._cfg, device=dev)
              for img in pair] for pair in imgs]
+    want_host = [[eager_host(img, ef._cfg, True, dev) for img in pair]
+                 for pair in imgs]
+    G.CACHE.clear()                     # eager_host's reads are no call's
     if keys == 1:
         ef.detect_and_compute_async(imgs[0][0])
         ef.detect_and_compute_async(imgs[0][1])
@@ -424,6 +465,8 @@ def test_replays_on_threads_stay_in_order(dev, keys):
                     got = as_pair(*ef.detect_and_compute_async(imgs[k][f]))
                     torch.cuda.current_stream(dev).synchronize()
                     same(got, want[k][f])
+                    same_host(on_host(*ef.detect_and_compute(imgs[k][f])),
+                              want_host[k][f])
         except AssertionError as e:
             errors.append(e)
 
@@ -434,8 +477,9 @@ def test_replays_on_threads_stay_in_order(dev, keys):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert not errors
-    calls = 48 + (2 if keys == 1 else 0)
+    calls = 96 + (2 if keys == 1 else 0)
     assert counters() == (keys, keys, calls - 2 * keys)
+    assert G.CACHE.packed_fetches + G.CACHE.field_fetches == 48
 
 
 @pytest.mark.cuda
@@ -463,3 +507,74 @@ def test_a_replay_opens_the_replay_span(dev, tmp_path):
                          ("pipeline.replay", "api.detect_and_compute_async")):
         assert at[outer][0] <= at[inner][0] <= at[inner][1] <= at[outer][1]
     assert counters() == (1, 1, 1)
+
+
+# (entry, with descriptors): the synchronous entries and `detect`, whose
+# `as_arrays()` fetches
+SYNC = [("detect_and_compute", True), ("detect", False),
+        ("detect_and_compute_batch", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,with_desc", SYNC, ids=[e for e, _ in SYNC])
+def test_sync_entries_fetch_one_block(dev, entry, with_desc):
+    """Over three distinct 4K frames: a key's first, eager call fetches
+    field by field, every later call its packed block in one copy, and
+    every call's host arrays and descriptors equal the eager route's bit
+    for bit.  The batch: one packed fetch a call, frame 0 of the first
+    eager."""
+    imgs, _ = frames("4k")
+    ef = EfficientFeatures(nfeatures=40000, descriptor_type="bad_256",
+                           device="cuda")
+    want = [eager_host(img, ef._cfg, with_desc, dev) for img in imgs]
+    G.CACHE.clear()                     # eager_host's reads are no call's
+    if entry == "detect_and_compute_batch":
+        for n in range(2):
+            got = ef.detect_and_compute_batch(np.stack(imgs), as_host=True)
+            for (kps, d), w in zip(got, want):
+                same_host(on_host(kps, d), w)
+            assert fetches() == (n + 1, 0)
+        assert counters() == (1, 1, 4)
+        return
+    for n, i in enumerate((0, 1, 2, 0, 1)):
+        if entry == "detect":
+            kps, d = ef.detect(imgs[i]), None
+            assert fetches() == (max(n - 1, 0), min(n, 1))  # none yet
+        else:
+            kps, d = ef.detect_and_compute(imgs[i])
+        got = on_host(kps, d)
+        assert fetches() == (n, 1)
+        same_host(got, want[i])
+        assert (kps._packed is None) == (n == 0)
+    assert counters() == (1, 1, 3)
+
+
+@pytest.mark.cuda
+def test_a_replayed_fetch_waits_once(dev):
+    """A replayed `detect_and_compute` + `as_arrays` of an image on the
+    card syncs the host once (a host image adds its blocking upload), and
+    after the warm-up its pinned buffers come from torch's caching host
+    allocator: no `cudaHostAlloc` in a trace of three more calls."""
+    from efficient_features_tpu_torch.tools.oncard import host_syncs
+    imgs, _ = frames("4k")
+    ef = EfficientFeatures(nfeatures=40000, descriptor_type="bad_256",
+                           device="cuda")
+
+    def call(img):
+        kps, _ = ef.detect_and_compute(img)
+        kps.as_arrays()
+
+    for img in imgs:
+        call(img)
+    on_card = torch.from_numpy(imgs[0]).to(dev)
+    assert len(host_syncs(lambda: call(on_card))) == 1
+    assert len(host_syncs(lambda: call(imgs[0]))) == 2
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for img in imgs:
+            call(img)
+    names = {e.key for e in prof.key_averages()}
+    assert any("cudaMemcpyAsync" in k for k in names), sorted(names)
+    assert not any("cudaHostAlloc" in k or "cudaHostRegister" in k
+                   for k in names), sorted(names)
