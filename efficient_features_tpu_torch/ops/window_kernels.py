@@ -36,6 +36,7 @@ from . import hash_sift as HS
 from . import image as I
 from . import orientation as O
 from .detect_kernels import require_cuda, stream_of
+from ..utils.profiler import span
 
 
 def _ic_inputs(image, ys, xs):
@@ -222,33 +223,38 @@ def bad_descriptors_windows(image, x, y, size, angle, valid, nbits: int,
     (`bad.window_plan`), or, for a window too large for that, from the
     whole image's integral, which K3 then builds itself (never on a
     detect_and_compute call, whose windows all fit).  No torch op builds an
-    integral, and the kernel computes each keypoint's trig itself."""
-    if image.device.type == "cpu":
-        return bad_descriptors_windows_ref(image, x, y, size, angle, valid,
-                                           nbits, scale_factor, origin,
-                                           frame_hw)
-    require_cuda(image, torch.uint8, "image")
-    frame = _frame(image, origin, frame_hw)
-    params = bad_params(nbits, str(image.device))
-    h, w = image.shape
-    n = x.shape[0]
-    out = torch.empty((n, nbits // 8), dtype=torch.uint8, device=image.device)
-    if n == 0:
+    integral, and the kernel computes each keypoint's trig itself.  The
+    span `eff/bad.describe` holds the call: the scratch integral, the flag
+    and the launch (on the CPU the plain version)."""
+    with span("bad.describe"):
+        if image.device.type == "cpu":
+            return bad_descriptors_windows_ref(image, x, y, size, angle,
+                                               valid, nbits, scale_factor,
+                                               origin, frame_hw)
+        require_cuda(image, torch.uint8, "image")
+        frame = _frame(image, origin, frame_hw)
+        params = bad_params(nbits, str(image.device))
+        h, w = image.shape
+        n = x.shape[0]
+        out = torch.empty((n, nbits // 8), dtype=torch.uint8,
+                          device=image.device)
+        if n == 0:
+            return out
+        kp = _keypoint_args(x, y, size, angle, valid)
+        integral = torch.empty((h + 1) * (w + 1), dtype=torch.int32,
+                               device=image.device)          # scratch
+        flag = torch.empty(1, dtype=torch.int32, device=image.device)
+        lib = _build.library()
+        with torch.cuda.device(image.device):
+            rc = lib.eff_bad_descriptors(
+                image.data_ptr(), h, w, *frame,
+                *(t.data_ptr() for t in kp), n, scale_factor,
+                params.boxes.data_ptr(),
+                params.thresholds.data_ptr(), nbits, integral.data_ptr(),
+                flag.data_ptr(), out.data_ptr(), stream_of(image))
+            _build.check(rc, "bad_descriptors_windows")
+            bad_descriptors_windows.launches += 1
         return out
-    kp = _keypoint_args(x, y, size, angle, valid)
-    integral = torch.empty((h + 1) * (w + 1), dtype=torch.int32,
-                           device=image.device)          # scratch
-    flag = torch.empty(1, dtype=torch.int32, device=image.device)
-    lib = _build.library()
-    with torch.cuda.device(image.device):
-        rc = lib.eff_bad_descriptors(
-            image.data_ptr(), h, w, *frame, *(t.data_ptr() for t in kp), n,
-            scale_factor, params.boxes.data_ptr(),
-            params.thresholds.data_ptr(), nbits, integral.data_ptr(),
-            flag.data_ptr(), out.data_ptr(), stream_of(image))
-        _build.check(rc, "bad_descriptors_windows")
-        bad_descriptors_windows.launches += 1
-    return out
 
 
 bad_descriptors_windows.launches = 0

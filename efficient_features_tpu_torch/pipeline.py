@@ -12,7 +12,9 @@ Spans (`utils/profiler.span`, recorded only under a torch profiler):
 around each concatenation of the levels.  HashSIFT's steps open
 `eff/hash_sift.warp` (K4) and `eff/hash_sift.hist` (K5), or
 `eff/hash_sift.fused` (K11), then `eff/hash_sift.project`, once a call of
-`_compute_descriptors`: a level's, or a `compute()`'s.
+`_compute_descriptors`: a level's, or a `compute()`'s; BAD opens
+`eff/bad.describe` (K3, `ops/window_kernels.py`) there.  `compute()` opens
+`eff/pipeline.compute` around its keypoint columns and describe.
 """
 from __future__ import annotations
 
@@ -359,6 +361,7 @@ def compute(image: torch.Tensor, xysa: torch.Tensor, valid: torch.Tensor,
     `compute_jit` and `compute_bucketed_jit`: one call covers every
     keypoint size.  Invalid slots give zero rows.  `hs_fused`: HashSIFT
     through K11 instead of K4 + K5."""
-    x, y, size, ang = xysa.to(torch.float32).T.contiguous()
-    return _compute_descriptors(image, x, y, size, ang, valid, kind, nbits,
-                                scale, hs_fused)
+    with span("pipeline.compute"):
+        x, y, size, ang = xysa.to(torch.float32).T.contiguous()
+        return _compute_descriptors(image, x, y, size, ang, valid, kind,
+                                    nbits, scale, hs_fused)

@@ -114,7 +114,8 @@ def trace(logdir: str | None = None):
 
 
 # The program's own spans are `eff/<layer>.<what>`: `api`, `wait` (the host
-# blocks on the card), `pipeline`, `sharding`, `ops`, `ransac`, `hash_sift`.
+# blocks on the card), `pipeline`, `sharding`, `ops`, `ransac`, `hash_sift`,
+# `bad`.
 PREFIX = "eff/"
 
 _OFF = contextlib.nullcontext()

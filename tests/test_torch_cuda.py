@@ -128,19 +128,26 @@ def test_ic_and_bad_kernels_match_plain(dev):
 
 def _bad_sizes(case, n, rng):
     """Keypoint sizes of a K3 case: 31 px (every detect_and_compute call),
-    64-300 px (compute() on the raw image), or both sides of the limit of
-    the shared-memory window (s = 1.125, size 36, `bad.window_plan`)."""
+    64-300 px (compute() on the raw image), both sides of the limit of the
+    shared-memory window (s = 1.125, size 36, `bad.window_plan`), or a
+    detector's eight octaves at 1.2 (`KeyPoints.xysa()` handed to
+    compute(): 31 px in the window, octaves 1-7 through the whole image's
+    integral)."""
     if case == "size 31":
         return np.full(n, 31.0, np.float32)
     if case == "sizes 64-300":
         return rng.uniform(64.0, 300.0, n).astype(np.float32)
+    if case == "detector octaves":
+        octaves = np.float32([s * np.float32(31.0) for s in
+                              TS.pyramid_scales(1.2, 8)])
+        return octaves[np.arange(n) % 8]
     return rng.choice(np.float32([34.0, 35.9, 36.0, 36.1, 37.2, 44.6]), n)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbits", [256, 512])
 @pytest.mark.parametrize("case", ["size 31", "sizes 64-300",
-                                  "window limit"])
+                                  "window limit", "detector octaves"])
 def test_bad_kernel_bytes_equal_plain(dev, nbits, case):
     """Zero differing bytes at both bit counts, on keypoints on the four
     corners, the edges and the 27.125 px branch boundary as well."""
@@ -150,6 +157,9 @@ def test_bad_kernel_bytes_equal_plain(dev, nbits, case):
         img = TI.gaussian_blur7_u8(img)
     x, y, _, angle, valid = bad_keypoints(400, 560, 2000, seed=len(case))
     size = _bad_sizes(case, 2000, np.random.default_rng(nbits))
+    if case == "detector octaves":     # each edge keypoint at every octave
+        for a in (x, y, angle):
+            a[:80] = np.repeat(a[:10], 8)
     kp = [torch.from_numpy(a).to(dev) for a in (x, y, size, angle, valid)]
     before = WK.bad_descriptors_windows.launches
     got = WK.bad_descriptors_windows(img, *kp, nbits)

@@ -1,6 +1,6 @@
 """HashSIFT's describe spans (`eff/hash_sift.warp`, `.hist`, `.fused`,
 `.project`): which each call opens under `utils.profiler.trace`, once a
-level inside `pipeline.describe_level` or once inside `api.compute_async`;
+level inside `pipeline.describe_level` or once inside `pipeline.compute`;
 none for BAD; nothing entered with no profiler running; the same
 descriptors either way.  On a card (`cuda`): the eager call and the capture
 open them, a replay of the captured graph none, with the same bytes."""
@@ -30,10 +30,10 @@ CASES = {
                         "pipeline.describe_level", NLEVELS),
     "compute_hs256": ("hash_sift_256", False, "compute",
                       ("hash_sift.warp", "hash_sift.hist",
-                       "hash_sift.project"), "api.compute_async", 1),
+                       "hash_sift.project"), "pipeline.compute", 1),
     "compute_hs256_fused": ("hash_sift_256", True, "compute",
                             ("hash_sift.fused", "hash_sift.project"),
-                            "api.compute_async", 1),
+                            "pipeline.compute", 1),
     "dac_bad256": ("bad_256", False, "detect_and_compute", (), None, 0),
     "compute_bad512": ("bad_512", False, "compute", (), None, 0),
 }

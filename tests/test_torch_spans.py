@@ -28,6 +28,7 @@ NESTING = {
         "pipeline.pyramid": "api.detect_and_compute_async",
         "pipeline.detect_level": "api.detect_and_compute_async",
         "pipeline.describe_level": "api.detect_and_compute_async",
+        "bad.describe": "pipeline.describe_level",
         "pipeline.join": "api.detect_and_compute_async",
         "wait.block": "api.detect_and_compute",
         "wait.fetch": "api.detect_and_compute",
@@ -38,6 +39,7 @@ NESTING = {
         "pipeline.pyramid": "api.detect_and_compute_async",
         "pipeline.detect_level": "api.detect_and_compute_async",
         "pipeline.describe_level": "api.detect_and_compute_async",
+        "bad.describe": "pipeline.describe_level",
         "pipeline.join": "api.detect_and_compute_async",
     },
     "detect_and_compute_batch": {
@@ -47,6 +49,7 @@ NESTING = {
         "pipeline.pyramid": "sharding.frame",
         "pipeline.detect_level": "sharding.frame",
         "pipeline.describe_level": "sharding.frame",
+        "bad.describe": "pipeline.describe_level",
         "pipeline.join": "sharding.frame",
         "wait.fetch": "api.detect_and_compute_batch",
     },
@@ -121,6 +124,7 @@ def test_each_span_lies_inside_its_parent_once_a_level(traced, entry):
     count = lambda n: sum(1 for s in spans if s[0] == n)  # noqa: E731
     assert count("pipeline.detect_level") == NLEVELS * frames
     assert count("pipeline.describe_level") == NLEVELS * frames
+    assert count("bad.describe") == NLEVELS * frames     # K3, a level
     assert count("pipeline.pyramid") == frames
     # the slots' join and the descriptor rows' join, a frame each
     assert count("pipeline.join") == 2 * frames
